@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (vocal_remover_tpu_torch) on one
+NVIDIA Hopper card.
+
+    python3 chip_smoke.py [--seed 0] [--profile]
+
+Phases (each prints a line; any failure exits non-zero):
+  1. card: name, capability (9, 0), nvidia-smi name and power limit;
+  2. build: every CUDA kernel of the port, from csrc/, in parallel;
+  3. kernels: each kernel against its plain PyTorch version on the card
+     at the main path's shapes (max abs error, kernel / plain / library
+     times from CUDA events, roofline bound);
+  4. main path: the flagship CascadedNet(2048, 1024, 32, 128) with random
+     weights from a seeded torch.Generator, saved as a .vrt.npz, separates
+     a 60 s stereo 44.1 kHz synthetic song through the CLI (first run in
+     the process, warm, TTA), with launch counts reset before and read
+     after each run; the
+     stems are checked for shape, dtype and the residual invariant
+     Instruments + Vocals == mixture (within 2 PCM16 LSB);
+  5. reference: a 4 s song through the CLI on the card and on the CPU
+     (plain recurrence): stems within 1 LSB;
+  then the kernels' JSON line, and the device line last.
+--profile adds a torch.profiler breakdown of one warm separation.
+
+Exits non-zero without printing a result when no CUDA card is present or
+when the port's package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+FLAGSHIP_PARAMS = 14_740_882
+SONG_SECONDS = 60
+SR = 44100
+
+
+def fail(msg: str):
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of `fn()` over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_card():
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[card] {name} capability {cap[0]}.{cap[1]} torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(smi, flush=True)
+    check(cap == (9, 0), f"needs a Hopper card (sm_90), got {cap}")
+    return name
+
+
+def phase_build(kernels):
+    from vocal_remover_tpu_torch import build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        paths = list(pool.map(build.build, [k["name"] for k in kernels]))
+    for k in kernels:
+        build.load(k["name"])
+    print(f"[build] {len(paths)} kernel(s) in "
+          f"{time.perf_counter() - t0:.2f}s: "
+          + ", ".join(os.path.basename(p) for p in paths), flush=True)
+
+
+def recurrence_cases():
+    """(T, 2N, H, input size) of the main path's launches, flagship at
+    crop 256 and batch 4: T = crop / 2, 2N = 2 directions x 4 patches;
+    H = 64 (low and full nets; input 256 / 512 bins), 32 (high nets);
+    plus a ragged case the main path does not make."""
+    return [(128, 8, 64, 256), (128, 8, 32, 256), (128, 8, 64, 512),
+            (37, 10, 32, 48)]
+
+
+def phase_recurrence(gen):
+    from vocal_remover_tpu_torch.nn import lstm_kernel
+
+    rows = []
+    for t_len, two_n, hidden, n_in in recurrence_cases():
+        xg = torch.randn(t_len, two_n, 4 * hidden, device="cuda",
+                         generator=gen)
+        w_hh = torch.randn(2, hidden, 4 * hidden, device="cuda",
+                           generator=gen) / hidden ** 0.5
+        out = lstm_kernel.recurrence(xg, w_hh)
+        torch.cuda.synchronize()
+        ref = lstm_kernel.recurrence_plain(xg, w_hh)
+        err = (out - ref).abs().max().item()
+        check(err <= 2e-5, f"recurrence {t_len}x{two_n}x{hidden}: max abs "
+                           f"err {err} > 2e-5")
+        ms = cuda_ms(lambda: lstm_kernel.recurrence(xg, w_hh), 200)
+        plain_ms = cuda_ms(lambda: lstm_kernel.recurrence_plain(xg, w_hh), 5)
+        # yardstick only (never called by the port): cuDNN's BiLSTM at
+        # the same (T, N, H), which also runs its own input projection
+        lstm = torch.nn.LSTM(n_in, hidden, bidirectional=True).cuda()
+        x = torch.randn(t_len, two_n // 2, n_in, device="cuda", generator=gen)
+        with torch.inference_mode():
+            library_ms = cuda_ms(lambda: lstm(x), 50)
+        n_bytes = 4 * (xg.numel() + w_hh.numel() + out.numel())
+        # matrix products and gate adds; the transcendentals are excluded
+        n_ops = t_len * two_n * 4 * hidden * (2 * hidden + 1)
+        t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
+        row = {
+            "shape": [t_len, two_n, hidden], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        rows.append(row)
+        print(f"[kernel] lstm_recurrence T={t_len} 2N={two_n} H={hidden}: "
+              f"max_abs_err {err:.3g} (tol 2e-5), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.nn.LSTM bidirectional {library_ms:.4f}"
+              f" ms (incl. its input GEMM), bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})", flush=True)
+    return rows
+
+
+def synth_song(seconds: float, seed: int) -> np.ndarray:
+    """Stereo test song: a few tones, a vibrato voice-like partial series
+    and noise, at about -10 dBFS."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(SR * seconds)) / SR
+    voice = sum(np.sin(2 * np.pi * k * 220 * (t + 0.002 * np.sin(
+        2 * np.pi * 5 * t))) / k for k in range(1, 6))
+    bass = np.sin(2 * np.pi * 55 * t)
+    left = 0.12 * voice + 0.1 * bass + 0.03 * rng.standard_normal(t.size)
+    right = 0.12 * voice + 0.08 * np.sin(2 * np.pi * 330 * t) \
+        + 0.03 * rng.standard_normal(t.size)
+    return np.stack([left, right]).astype(np.float32)
+
+
+def run_cli(argv, counters):
+    """One CLI run with every kernel wrapper's `launches` count reset just
+    before and read just after; -> (wall seconds, {kernel: launches})."""
+    from vocal_remover_tpu_torch.cli import inference as cli
+
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, {k: wrapper.launches for k, wrapper in counters.items()}
+
+
+def read_stems(out_dir, name):
+    from vocal_remover_tpu_torch.utils import audio
+
+    stems = []
+    for stem in ("Instruments", "Vocals"):
+        w, sr = audio.read_wav(os.path.join(out_dir, f"{name}_{stem}.wav"))
+        check(sr == SR, f"{stem}: sample rate {sr}")
+        stems.append(np.round(w * 32768.0).astype(np.int32))
+    return stems
+
+
+def phase_main_path(tmp, seed, counters, chunk_launches):
+    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.models.cascaded import (
+        CascadedNet,
+        param_count,
+    )
+    from vocal_remover_tpu_torch.ops import stft as stft_ops
+    from vocal_remover_tpu_torch.ops.windowing import make_padding, num_patches
+    from vocal_remover_tpu_torch.utils import audio
+
+    model = CascadedNet(2048, 1024, 32, 128,
+                        generator=torch.Generator().manual_seed(seed))
+    n_params = param_count(model)
+    check(n_params == FLAGSHIP_PARAMS, f"flagship has {n_params} params")
+    ckpt = os.path.join(tmp, "flagship.vrt.npz")
+    convert.save_native(ckpt, convert.to_jax_variables(model),
+                        convert.model_config(model))
+    song = os.path.join(tmp, "song.wav")
+    audio.write_wav(song, synth_song(SONG_SECONDS, seed), SR)
+    mix = np.round(audio.read_wav(song)[0] * 32768.0).astype(np.int32)
+    print(f"[main] flagship CascadedNet(2048, 1024, 32, 128): {n_params} "
+          f"params, {SONG_SECONDS} s stereo {SR} Hz song", flush=True)
+
+    # chunks of 4 patches for the 30 s-bucketed song, without / with TTA
+    n_frame = stft_ops.num_frames(mix.shape[-1], 2048, 1024)
+    pad_l, pad_r, roi = make_padding(n_frame, 256, 64)
+
+    def chunks(extra):
+        n = num_patches(pad_l + n_frame + pad_r + 2 * extra, roi, 64)
+        return -(-n // 4)
+
+    want = {False: chunks(0), True: chunks(0) + chunks(roi // 2)}
+    out_dir = os.path.join(tmp, "out")
+    argv = ["-P", ckpt, "-i", song, "-o", out_dir]
+    results = {}
+    for label, tta in (("first", False), ("warm", False), ("tta", True)):
+        wall, launches = run_cli(argv + (["--tta"] if tta else []), counters)
+        y, v = read_stems(out_dir, "song")
+        check(y.shape == v.shape == mix.shape, f"{label}: stem shape "
+                                               f"{y.shape} vs {mix.shape}")
+        n_cov = 1024 * (mix.shape[-1] // 1024)  # samples the iSTFT covers
+        resid = int(np.abs(y + v - mix)[:, :n_cov].max())
+        tail = int(np.abs(np.concatenate([y, v])[:, n_cov:]).max(initial=0))
+        check(resid <= 2, f"{label}: |Instruments + Vocals - mixture| = "
+                          f"{resid} LSB > 2")
+        check(tail == 0, f"{label}: uncovered tail is not silent")
+        for k, n in launches.items():
+            check(n == chunk_launches[k] * want[tta],
+                  f"{label}: {k} launched {n} times, want "
+                  f"{chunk_launches[k]} x {want[tta]} chunks")
+        results[label] = {"wall_s": wall, "launches": launches}
+        print(f"[main] {label}: {wall:.3f} s wall, "
+              f"{SONG_SECONDS / wall:.2f} x real time, launches {launches} "
+              f"({want[tta]} chunks), residual {resid} LSB on the "
+              f"{n_cov} covered samples, {mix.shape[-1] - n_cov} "
+              "uncovered tail samples silent", flush=True)
+    return ckpt, results
+
+
+def phase_reference(tmp, ckpt, seed):
+    """The same CLI on a 4 s song on the card and on the CPU."""
+    from vocal_remover_tpu_torch.cli import inference as cli
+    from vocal_remover_tpu_torch.utils import audio
+
+    song = os.path.join(tmp, "short.wav")
+    audio.write_wav(song, synth_song(4.0, seed + 1), SR)
+    stems = {}
+    for gpu in ("0", "-1"):
+        out_dir = os.path.join(tmp, f"ref{gpu}")
+        cli.main(["-P", ckpt, "-i", song, "-o", out_dir, "--gpu", gpu,
+                  "--exact_length"])
+        stems[gpu] = read_stems(out_dir, "short")
+    diff = max(int(np.abs(a - b).max())
+               for a, b in zip(stems["0"], stems["-1"]))
+    check(diff <= 1, f"card vs CPU stems differ by {diff} LSB > 1")
+    print(f"[reference] 4 s song, card vs CPU (plain recurrence): max "
+          f"{diff} LSB (tol 1)", flush=True)
+
+
+def phase_profile(ckpt, seed):
+    """Device time by kernel name for one warm 60 s separation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.separate.separator import Separator
+
+    sp = Separator(convert.load_model(ckpt, 2048, 1024), device="cuda")
+    wave = synth_song(SONG_SECONDS, seed)
+    sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device kernels only (CPU ops and the profiler's own buffer
+    # activities also carry device time in key_averages)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in ("Buffer Flush", "Activity Buffer Request")]
+    busy, last = 0.0, float("-inf")
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in kernels):
+        busy += max(0.0, e - max(s, last))
+        last = max(last, e)
+    by_name = {}
+    for k in kernels:
+        t, n = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (t + k.time_range.elapsed_us(), n + 1)
+    total = sum(t for t, _ in by_name.values())
+    print(f"[profile] warm 60 s separation: {wall:.3f} s wall with the "
+          f"profiler on, {len(kernels)} kernel launches, kernel time "
+          f"{total / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / 1e6 / wall:.1f}% of wall", flush=True)
+    for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",
+              flush=True)
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile", action="store_true")
+    args = p.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    try:
+        from vocal_remover_tpu_torch.nn import config, lstm_kernel
+    except ImportError as e:
+        fail(f"the port's package is not beside this script ({e})")
+
+    # every kernel of the main path (name = its csrc/ source): the
+    # wrapper module holding its `launches` count, its launches per
+    # 4-patch chunk (5 band nets x 1 BiLSTM), and its record
+    kernels = [{
+        "name": "lstm_recurrence",
+        "route": "cuda",
+        "source": "vocal_remover_tpu_torch/csrc/lstm_recurrence.cu",
+        "replaces": "vocal_remover_tpu/nn/lstm_pallas.py:75",
+        "wrapper": lstm_kernel,
+        "per_chunk": 5,
+    }]
+    counters = {k["name"]: k["wrapper"] for k in kernels}
+
+    name = phase_card()
+    config.set_precision("highest")
+    phase_build(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    rec_rows = phase_recurrence(gen)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, results = phase_main_path(
+            tmp, args.seed, counters,
+            {k["name"]: k["per_chunk"] for k in kernels})
+        phase_reference(tmp, ckpt, args.seed)
+        if args.profile:
+            phase_profile(ckpt, args.seed)
+
+    flagship = rec_rows[0]  # T = 128, 2N = 8, H = 64
+    record = [{
+        "name": k["name"], "route": k["route"], "source": k["source"],
+        "replaces": k["replaces"],
+        "launches": results["warm"]["launches"][k["name"]],
+        "max_abs_err": max(r["max_abs_err"] for r in rec_rows),
+        "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
+        "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"],
+        "library_ms": flagship["library_ms"],
+    } for k in kernels]
+    print(json.dumps({"kernels": record}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

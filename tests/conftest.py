@@ -75,3 +75,6 @@ def pytest_configure(config):
         "markers", "reference: test compares against the upstream reference"
     )
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)"
+    )

@@ -1,0 +1,102 @@
+"""GPU port: the BiLSTM recurrence and `bilstm` vs the JAX Pallas kernel
+(interpret mode on the CPU), and the CUDA kernel vs its plain version on
+a card."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vocal_remover_tpu.nn import lstm as jlstm
+from vocal_remover_tpu.nn.lstm_pallas import _run_recurrence, bilstm_pallas
+from vocal_remover_tpu_torch.nn import lstm as tlstm
+from vocal_remover_tpu_torch.nn import lstm_kernel
+
+torch.set_num_threads(1)
+
+
+def _inputs(t_len, two_n, hidden, seed):
+    rng = np.random.default_rng(seed)
+    xg = rng.standard_normal((t_len, two_n, 4 * hidden)).astype(np.float32)
+    w_hh = (rng.standard_normal((2, hidden, 4 * hidden))
+            / np.sqrt(hidden)).astype(np.float32)
+    return xg, w_hh
+
+
+@pytest.mark.parametrize("t_len,two_n,hidden", [(16, 8, 16), (33, 4, 32)])
+def test_recurrence_plain_matches_pallas(t_len, two_n, hidden):
+    xg, w_hh = _inputs(t_len, two_n, hidden, seed=t_len)
+    ref = np.asarray(_run_recurrence(xg, w_hh, interpret=True))
+    before = lstm_kernel.launches
+    out = lstm_kernel.recurrence(torch.from_numpy(xg), torch.from_numpy(w_hh))
+    assert lstm_kernel.launches == before  # CPU tensors: plain version
+    assert out.shape == (t_len, two_n, hidden)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("t_len,n,input_size,hidden", [
+    (16, 4, 32, 16),
+    (33, 2, 64, 32),
+])
+def test_bilstm_matches_pallas(t_len, n, input_size, hidden):
+    params = jlstm.init_bilstm(jax.random.PRNGKey(0), input_size, hidden)
+    x = np.random.default_rng(1).standard_normal(
+        (t_len, n, input_size)).astype(np.float32)
+    ref = np.asarray(bilstm_pallas(params, x))
+    tparams = jax.tree_util.tree_map(
+        lambda a: torch.from_numpy(np.array(a)), params)
+    out = tlstm.bilstm(tparams, torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == (t_len, n, 2 * hidden)
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+def test_bilstm_module_uses_torch_layout():
+    """BiLSTM's parameters are nn.LSTM's (4H, In) layout and names."""
+    mod = tlstm.BiLSTM(12, 8)
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    names = {n: tuple(p.shape) for n, p in mod.named_parameters()}
+    ref = torch.nn.LSTM(12, 8, bidirectional=True)
+    assert names == {n: tuple(p.shape) for n, p in ref.named_parameters()}
+    ref.load_state_dict(mod.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (9, 3, 12)).astype(np.float32))
+    with torch.no_grad():
+        want, _ = ref(x)
+        got = mod(x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("xg_shape,w_shape,dtype,error", [
+    ((4, 6, 32), (2, 8, 32), torch.float64, TypeError),
+    ((4, 6, 32), (2, 4, 32), torch.float32, ValueError),
+    ((4, 5, 32), (2, 8, 32), torch.float32, ValueError),
+    ((6, 32), (2, 8, 32), torch.float32, ValueError),
+])
+def test_recurrence_rejects_bad_inputs(xg_shape, w_shape, dtype, error):
+    with pytest.raises(error):
+        lstm_kernel.recurrence(torch.zeros(xg_shape, dtype=dtype),
+                               torch.zeros(w_shape, dtype=dtype))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len,two_n,hidden", [
+    (128, 8, 64), (128, 8, 32), (37, 10, 32),
+])
+def test_kernel_matches_plain_on_card(cuda_device, t_len, two_n, hidden):
+    xg, w_hh = _inputs(t_len, two_n, hidden, seed=3)
+    xg_d = torch.from_numpy(xg).to(cuda_device)
+    w_d = torch.from_numpy(w_hh).to(cuda_device)
+    before = lstm_kernel.launches
+    out = lstm_kernel.recurrence(xg_d, w_d)
+    torch.cuda.synchronize()
+    assert lstm_kernel.launches == before + 1
+    ref = lstm_kernel.recurrence_plain(xg_d, w_d)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-5)

@@ -1,0 +1,87 @@
+"""GPU port: no JAX anywhere in the port, and its own audio I/O vs the
+JAX package's."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from vocal_remover_tpu import native
+from vocal_remover_tpu.utils import audio as jaudio
+from vocal_remover_tpu_torch.utils import audio as taudio
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "vocal_remover_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "vocal_remover_tpu"), (
+                f"{os.path.relpath(path, ROOT)} imports {mod}")
+
+
+def test_pcm16_encode_matches_jax(rng):
+    x = np.concatenate([rng.uniform(-1.2, 1.2, 4000),
+                        np.arange(-4, 5) / 65536.0,  # ties round to even
+                        [1.0, -1.0, 1 - 1 / 65536]]).astype(np.float32)
+    ref = native.pcm16_encode(x)
+    if ref is None:  # the JAX package's numpy fallback
+        ref = np.round(np.clip(x, -1.0, 1.0 - 1.0 / 32768.0)
+                       * 32768.0).astype(np.int16)
+    np.testing.assert_array_equal(taudio.pcm16_encode(x), ref)
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_wav_round_trip_matches_jax(rng, tmp_path, channels):
+    wave = (0.5 * rng.standard_normal((channels, 3000))).astype(np.float32)
+    if channels == 1:
+        wave = wave[0]
+    ours, theirs = str(tmp_path / "a.wav"), str(tmp_path / "b.wav")
+    taudio.write_wav(ours, wave, 8000)
+    jaudio.write_wav(theirs, wave, 8000)
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    got, sr = taudio.load(ours, sr=None)
+    want, _ = jaudio.load(theirs, sr=None)
+    assert sr == 8000 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_load_resamples_like_jax(rng, tmp_path):
+    path = str(tmp_path / "song.wav")
+    jaudio.write_wav(path, (0.3 * rng.standard_normal((2, 2205))
+                            ).astype(np.float32), 22050)
+    got, sr = taudio.load(path, sr=8000)
+    want, _ = jaudio.load(path, sr=8000)
+    assert sr == 8000 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_load_refuses_compressed_formats(tmp_path):
+    with pytest.raises(ValueError, match="only WAV"):
+        taudio.load(str(tmp_path / "song.flac"))

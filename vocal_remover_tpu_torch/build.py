@@ -1,0 +1,69 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+Each source in `csrc/` is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface, at first use, into
+`build/torch_kernels/` at the root of the checkout (listed in
+.gitignore). The library's name carries a hash of its source and flags,
+so an edited source is rebuilt and an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: on PATH, else under CUDA_HOME or
+    /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu (if not built yet) and return the library
+    path."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (once) and load csrc/<name>.cu; cached per process."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _libs[name] = ctypes.CDLL(str(build(name)))
+    return lib

@@ -1,0 +1,126 @@
+"""CascadedNet, the flagship 3-stage multi-band mask model (NCHW).
+
+Counterpart of vocal_remover_tpu/models/cascaded.py (reference
+lib/nets.py:44-141): stage 1 runs low/high half-band U-Nets, stage 2
+re-refines each band on [band input (+) stage-1 output], stage 3 runs the
+full band on [input (+) aux1 (+) aux2], and a 1x1 float32 head gives a
+sigmoid mask (or the tanh-bounded complex mask), edge-padded from
+max_bin to output_bin frequency bins.
+
+Inputs are (N, 2, output_bin, T) magnitudes (or (N, 4, output_bin, T)
+re/im pairs in complex mode). Attribute paths are the reference's
+state_dict keys: the stage-1/2 low nets are Sequential(BaseNet,
+Conv2DBNActiv) ('stg1_low_band_net.0.', '.1.').
+
+CascadedNet(2048, 1024, 32, 128) has 14,740,882 trainable parameters.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vocal_remover_tpu_torch.models.base_net import BaseNet
+from vocal_remover_tpu_torch.nn.layers import (
+    Conv2d,
+    Conv2DBNActiv,
+    reset_parameters,
+)
+
+
+class CascadedNet(nn.Module):
+    def __init__(self, n_fft, hop_length, nout=32, nout_lstm=128,
+                 is_complex=False, generator: torch.Generator | None = None):
+        """Parameters are made on the CPU from `generator` (a fresh one
+        seeded 0 when None) with the torch layer defaults; move the
+        module with `.to(device)`."""
+        super().__init__()
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.is_complex = is_complex
+        self.max_bin = n_fft // 2
+        self.output_bin = n_fft // 2 + 1
+        self.nin_lstm = self.max_bin // 2
+        self.offset = 64
+        self.nout = nout
+        self.nout_lstm = nout_lstm
+        nin = 4 if is_complex else 2
+        self.nin = nin
+
+        self.stg1_low_band_net = nn.Sequential(
+            BaseNet(nin, nout // 2, self.nin_lstm // 2, nout_lstm),
+            Conv2DBNActiv(nout // 2, nout // 4, 1, 1, 0),
+        )
+        self.stg1_high_band_net = BaseNet(
+            nin, nout // 4, self.nin_lstm // 2, nout_lstm // 2
+        )
+        self.stg2_low_band_net = nn.Sequential(
+            BaseNet(nout // 4 + nin, nout, self.nin_lstm // 2, nout_lstm),
+            Conv2DBNActiv(nout, nout // 2, 1, 1, 0),
+        )
+        self.stg2_high_band_net = BaseNet(
+            nout // 4 + nin, nout // 2, self.nin_lstm // 2, nout_lstm // 2
+        )
+        self.stg3_full_band_net = BaseNet(
+            3 * nout // 4 + nin, nout, self.nin_lstm, nout_lstm
+        )
+        self.out = Conv2d(nout, nin, 1)
+        self.aux_out = Conv2d(3 * nout // 4, nin, 1)
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        reset_parameters(self, generator)
+
+    def forward(self, x):
+        """(N, nin, >= max_bin, T) -> mask (N, nin, output_bin, T)."""
+        if x.dim() != 4 or x.shape[2] < self.max_bin:
+            raise ValueError(
+                f"CascadedNet expects (N, C, >={self.max_bin} bins, T) "
+                f"input (n_fft={self.n_fft}), got {tuple(x.shape)}"
+            )
+        x = x[:, :, :self.max_bin]
+        bandw = x.shape[2] // 2
+        l1_in = x[:, :, :bandw]
+        h1_in = x[:, :, bandw:]
+        l1 = self.stg1_low_band_net(l1_in)
+        h1 = self.stg1_high_band_net(h1_in)
+        aux1 = torch.cat([l1, h1], dim=2)
+
+        l2 = self.stg2_low_band_net(torch.cat([l1_in, l1], dim=1))
+        h2 = self.stg2_high_band_net(torch.cat([h1_in, h1], dim=1))
+        aux2 = torch.cat([l2, h2], dim=2)
+
+        f3 = self.stg3_full_band_net(torch.cat([x, aux1, aux2], dim=1))
+        return self._head(self.out.weight, f3)
+
+    def _head(self, kernel, feat):
+        m = torch.nn.functional.conv2d(feat.float(), kernel.float())
+        if self.is_complex:
+            m = self.bounded_mask(m)
+        else:
+            m = torch.sigmoid(m)
+        pad = self.output_bin - m.shape[2]
+        if pad > 0:  # replicate-pad frequency up to output_bin
+            m = torch.nn.functional.pad(m, (0, 0, 0, pad), mode="replicate")
+        return m
+
+    def bounded_mask(self, m, eps=1e-8):
+        """tanh-bounded complex mask on stacked re/im channels."""
+        re, im = m[:, :2], m[:, 2:]
+        mag = torch.sqrt(torch.clamp_min(re * re + im * im, 1e-24))
+        scale = torch.tanh(mag) / (mag + eps)
+        return torch.cat([re * scale, im * scale], dim=1)
+
+    def predict_mask(self, x):
+        """Eval mask with the offset trimmed off both ends of time."""
+        mask = self(x)
+        if self.offset > 0:
+            mask = mask[:, :, :, self.offset:-self.offset]
+            if mask.shape[3] <= 0:
+                raise ValueError("input shorter than 2 * offset frames")
+        return mask
+
+
+def param_count(model: nn.Module) -> int:
+    """Trainable parameter count (BN running statistics are buffers)."""
+    return sum(p.numel() for p in model.parameters())

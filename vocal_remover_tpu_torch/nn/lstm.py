@@ -1,0 +1,77 @@
+"""Bidirectional LSTM: input projection in PyTorch, recurrence in the
+kernel.
+
+Counterpart of vocal_remover_tpu/nn/lstm.py `bilstm` and
+nn/lstm_pallas.py `bilstm_pallas`, with the same contract: the input
+projection for all timesteps is one matrix product outside the kernel
+(as XLA computes it outside Pallas), the backward direction is reversed
+in time and stacked on the batch axis, and the recurrence
+(nn/lstm_kernel.py) runs both directions at once in float32. Gate order
+follows torch: input, forget, cell, output.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from vocal_remover_tpu_torch.nn import lstm_kernel
+
+
+def bilstm(params, x):
+    """(T, N, In) -> (T, N, 2H), zero initial state.
+
+    params: {"fwd": d, "bwd": d} with d = {"w_ih": (In, 4H), "w_hh":
+    (H, 4H), "b_ih": (4H,), "b_hh": (4H,)} (the JAX package's layout)."""
+    x = x.float()
+    pf, pb = params["fwd"], params["bwd"]
+    n = x.shape[1]
+    xg_f = torch.einsum("tni,ih->tnh", x, pf["w_ih"]) + pf["b_ih"] + pf["b_hh"]
+    xg_b = (torch.einsum("tni,ih->tnh", x.flip(0), pb["w_ih"])
+            + pb["b_ih"] + pb["b_hh"])
+    xg = torch.cat([xg_f, xg_b], dim=1)  # (T, 2N, 4H), contiguous
+    w_hh = torch.stack([pf["w_hh"], pb["w_hh"]])  # (2, H, 4H)
+    hs = lstm_kernel.recurrence(xg, w_hh)  # (T, 2N, H)
+    return torch.cat([hs[:, :n], hs[:, n:].flip(0)], dim=-1)
+
+
+class BiLSTM(nn.Module):
+    """Parameter holder with torch `nn.LSTM(bidirectional=True)` names
+    and layouts (weight_ih_l0 (4H, In), ..., *_reverse), so state_dict
+    keys match the reference's; the forward is `bilstm`."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        for sfx in ("", "_reverse"):
+            self.register_parameter(f"weight_ih_l0{sfx}", nn.Parameter(
+                torch.empty(4 * hidden, input_size)))
+            self.register_parameter(f"weight_hh_l0{sfx}", nn.Parameter(
+                torch.empty(4 * hidden, hidden)))
+            self.register_parameter(f"bias_ih_l0{sfx}", nn.Parameter(
+                torch.empty(4 * hidden)))
+            self.register_parameter(f"bias_hh_l0{sfx}", nn.Parameter(
+                torch.empty(4 * hidden)))
+
+    def reset_parameters(self, generator: torch.Generator):
+        """torch nn.LSTM default: every tensor U(-1/sqrt(H), 1/sqrt(H))."""
+        bound = 1.0 / math.sqrt(self.hidden)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-bound, bound, generator=generator)
+
+    def params(self):
+        def direction(sfx):
+            return {
+                "w_ih": getattr(self, f"weight_ih_l0{sfx}").t(),
+                "w_hh": getattr(self, f"weight_hh_l0{sfx}").t(),
+                "b_ih": getattr(self, f"bias_ih_l0{sfx}"),
+                "b_hh": getattr(self, f"bias_hh_l0{sfx}"),
+            }
+
+        return {"fwd": direction(""), "bwd": direction("_reverse")}
+
+    def forward(self, x):
+        return bilstm(self.params(), x)
