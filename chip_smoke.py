@@ -6,21 +6,31 @@ NVIDIA Hopper card.
 
 Phases (each prints a line; any failure exits non-zero):
   1. card: name, capability (9, 0), nvidia-smi name and power limit;
-  2. build: every CUDA kernel of the port, from csrc/, in parallel;
+  2. build: every CUDA kernel of the port, from csrc/, in parallel (one
+     nvcc per source);
   3. kernels: each kernel against its plain PyTorch version on the card
-     at the main path's shapes (max abs error, kernel / plain / library
-     times from CUDA events, roofline bound);
-  4. main path: the flagship CascadedNet(2048, 1024, 32, 128) with random
+     at the main paths' shapes (max abs error against a stated
+     tolerance, kernel / plain / library times from CUDA events,
+     roofline bound from the useful work): the BiLSTM recurrence, and
+     the flat conv at all four layers of stg3_full_band_net and of
+     stg1_high_band_net in f32 and bf16, plus ragged cases;
+  4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
-     a 60 s stereo 44.1 kHz synthetic song through the CLI (first run in
-     the process, warm, TTA), with launch counts reset before and read
-     after each run; the
-     stems are checked for shape, dtype and the residual invariant
-     Instruments + Vocals == mixture (within 2 PCM16 LSB);
+     a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
+     kernel's launch count set to 0 before and read after each run:
+       plain       (first, warm, --tta): recurrence 30 / 60 launches;
+       --flat_conv (first, warm, --tta): flat conv 120 / 240, recurrence
+                   30 / 60; stems within 1 LSB of the plain path's;
+       --flat_conv --precision bfloat16 (first, warm): same counts; SNR of
+                   the stems against the `highest` stems held to a floor;
+     every run's stems are checked for shape, dtype and the residual
+     invariant Instruments + Vocals == mixture (within 2 PCM16 LSB);
   5. reference: a 4 s song through the CLI on the card and on the CPU
-     (plain recurrence): stems within 1 LSB;
+     (plain versions of both kernels), plain and --flat_conv: stems
+     within 1 LSB;
   then the kernels' JSON line, and the device line last.
---profile adds a torch.profiler breakdown of one warm separation.
+--profile adds a torch.profiler breakdown of one warm separation on each
+of the three paths.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's package is not beside this script.
@@ -42,11 +52,15 @@ import torch
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP_PARAMS = 14_740_882
 SONG_SECONDS = 60
 SR = 44100
+# stems of --precision bfloat16 against the highest stems: 83.2 dB seen on
+# an H100 with this script's random weights; the floor leaves 20 dB
+BF16_SNR_FLOOR_DB = 60.0
 
 
 def fail(msg: str):
@@ -152,6 +166,114 @@ def phase_recurrence(gen):
     return rows
 
 
+def flat_conv_cases():
+    """(label, N, H, W, cin, cout, k, stride, p_out) of the flat conv's
+    launches on the --flat_conv path, flagship at crop 256 and batch 4:
+    the four layers of stg3_full_band_net (F = 1024, c1 = 32, p1 = 4: the
+    widest) and of stg1_high_band_net (F = 512, c1 = 8, p1 = 16: the most
+    packed); then cases the main path does not make: a 1x1 whose row
+    count is no multiple of the kernel's 64-row tile, and a stride-2 conv
+    with ragged lanes (L = 120, NL = 120)."""
+    cases = []
+    for net, bins, c1, p1 in (("stg3_full", 1024, 32, 4),
+                              ("stg1_high", 512, 8, 16)):
+        cases += [
+            (f"{net} enc2_conv1", 4, bins, 256, c1, 2 * c1, 3, 2, p1 // 2),
+            (f"{net} enc2_conv2", 4, bins // 2, 128, 2 * c1, 2 * c1, 3, 1,
+             p1 // 2),
+            (f"{net} enc3_conv1", 4, bins // 2, 128, 2 * c1, 4 * c1, 3, 2,
+             p1 // 4),
+            (f"{net} enc3_conv2", 4, bins // 4, 64, 4 * c1, 4 * c1, 3, 1,
+             p1 // 4),
+        ]
+    cases += [("ragged 1x1", 3, 21, 96, 32, 48, 1, 1, 4),
+              ("ragged s2", 2, 10, 48, 20, 40, 3, 2, 3)]
+    return cases
+
+
+def phase_flat_conv(seed):
+    """The flat-conv kernel against `flat_conv_core_plain` on the card.
+
+    Tolerances: f32 in and out 1e-4 absolute (the same f32 products,
+    summed in another order, outputs of order 1); bf16 in and out,
+    compared in the working type: 2^-7 of the largest output (one bf16
+    step there: kernel and plain version round the same f32 sum, which
+    they reach in another order).
+    Bound: the conv's USEFUL work, whatever computes it: FLOPs = 2 N
+    H_out W_out Cout k k Cin over the f32 FFMA peak (f32 in and out) or
+    the bf16 tensor-core peak (bf16), bytes = input + output + the HWIO
+    weights + the bias once. Library yardstick (never called by the
+    port): one torch.nn.functional.conv2d with bias on the same tensor in
+    channels_last, plus the activation."""
+    from vocal_remover_tpu_torch.nn import conv_pack as cp
+    from vocal_remover_tpu_torch.nn import flat_conv_kernel as fk
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for label, n, h, w, cin, cout, k, stride, p_out in flat_conv_cases():
+        wk = (rng.standard_normal((k, k, cin, cout))
+              / np.sqrt(k * k * cin)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+        layer = cp.build_flat_layer(wk, b, p_out, stride, act="leaky_relu")
+        x32 = torch.from_numpy(
+            rng.standard_normal((n, h, w, cin), dtype=np.float32)).cuda()
+        h_out, w_out = h // stride, w // stride
+        flops = 2 * n * h_out * w_out * cout * k * k * cin
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = x32.to(dtype)
+            args = dict(
+                xf=cp.to_flat(x, layer["p_in"]),
+                wst=torch.from_numpy(layer["wst"]).cuda().to(dtype),
+                bias=torch.from_numpy(layer["bias"]).cuda(),
+                wb=w_out // p_out, h_out=h_out, rowtaps=layer["rowtaps"],
+                s_list=layer["s_list"], act="leaky_relu", out_dtype=dtype)
+            out = fk.flat_conv_core(**args)
+            torch.cuda.synchronize()
+            ref = fk.flat_conv_core_plain(**args)
+            check(out.shape == ref.shape and out.dtype == dtype,
+                  f"flat_conv {label} {name}: output {tuple(out.shape)} "
+                  f"{out.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 1e-4 if dtype == torch.float32 else \
+                2.0 ** -7 * ref.float().abs().max().item()
+            check(err <= tol, f"flat_conv {label} {name}: max abs err {err} "
+                              f"> {tol}")
+            ms = cuda_ms(lambda: fk.flat_conv_core(**args), 20)
+            plain_ms = cuda_ms(lambda: fk.flat_conv_core_plain(**args), 3, 1)
+            xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
+            wc = torch.from_numpy(wk).cuda().to(dtype).permute(
+                3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bc = torch.from_numpy(b).cuda().to(dtype)
+            with torch.inference_mode():
+                library_ms = cuda_ms(
+                    lambda: torch.nn.functional.leaky_relu(
+                        torch.nn.functional.conv2d(
+                            xc, wc, bc, stride, (k - 1) // 2), 0.01), 10)
+            size = 4 if dtype == torch.float32 else 2
+            n_bytes = size * (x.numel() + out.numel() + wk.size) + 4 * b.size
+            peak = PEAK_F32_FLOPS if dtype == torch.float32 \
+                else PEAK_BF16_FLOPS
+            t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+            dense = 2 * n * h_out * (w_out // p_out) * layer["wst"].size
+            row = {
+                "label": label, "dtype": name, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            }
+            rows.append(row)
+            print(f"[kernel] flat_conv {label} {name} x{tuple(args['xf'].shape)}"
+                  f" wst{tuple(args['wst'].shape)}: max_abs_err {err:.3g} (tol "
+                  f"{tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"conv2d channels_last {library_ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; useful "
+                  f"{flops / 1e9:.3f} GFLOP, dense wst {dense / 1e9:.3f} "
+                  f"GFLOP, {n_bytes / 1e6:.2f} MB)", flush=True)
+            del args, out, ref, x, xc
+        del x32
+    return rows
+
+
 def synth_song(seconds: float, seed: int) -> np.ndarray:
     """Stereo test song: a few tones, a vibrato voice-like partial series
     and noise, at about -10 dBFS."""
@@ -192,7 +314,26 @@ def read_stems(out_dir, name):
     return stems
 
 
-def phase_main_path(tmp, seed, counters, chunk_launches):
+def snr_db(ref, test) -> float:
+    num = float(np.sum(ref.astype(np.float64) ** 2))
+    den = float(np.sum((ref - test).astype(np.float64) ** 2))
+    return float("inf") if den == 0 else 10.0 * np.log10(num / den)
+
+
+# the three paths of the CLI that this script drives: flags, the runs of
+# each, and which kernels the path goes through
+PATHS = {
+    "plain": {"flags": [], "runs": ("first", "warm", "tta"),
+              "kernels": ("lstm_recurrence",)},
+    "flat": {"flags": ["--flat_conv"], "runs": ("first", "warm", "tta"),
+             "kernels": ("lstm_recurrence", "flat_conv")},
+    "flat_bf16": {"flags": ["--flat_conv", "--precision", "bfloat16"],
+                  "runs": ("first", "warm"),
+                  "kernels": ("lstm_recurrence", "flat_conv")},
+}
+
+
+def phase_main_path(tmp, seed, counters, per_chunk):
     from vocal_remover_tpu_torch.models import convert
     from vocal_remover_tpu_torch.models.cascaded import (
         CascadedNet,
@@ -225,29 +366,52 @@ def phase_main_path(tmp, seed, counters, chunk_launches):
 
     want = {False: chunks(0), True: chunks(0) + chunks(roi // 2)}
     out_dir = os.path.join(tmp, "out")
-    argv = ["-P", ckpt, "-i", song, "-o", out_dir]
-    results = {}
-    for label, tta in (("first", False), ("warm", False), ("tta", True)):
-        wall, launches = run_cli(argv + (["--tta"] if tta else []), counters)
-        y, v = read_stems(out_dir, "song")
-        check(y.shape == v.shape == mix.shape, f"{label}: stem shape "
-                                               f"{y.shape} vs {mix.shape}")
-        n_cov = 1024 * (mix.shape[-1] // 1024)  # samples the iSTFT covers
-        resid = int(np.abs(y + v - mix)[:, :n_cov].max())
-        tail = int(np.abs(np.concatenate([y, v])[:, n_cov:]).max(initial=0))
-        check(resid <= 2, f"{label}: |Instruments + Vocals - mixture| = "
-                          f"{resid} LSB > 2")
-        check(tail == 0, f"{label}: uncovered tail is not silent")
-        for k, n in launches.items():
-            check(n == chunk_launches[k] * want[tta],
-                  f"{label}: {k} launched {n} times, want "
-                  f"{chunk_launches[k]} x {want[tta]} chunks")
-        results[label] = {"wall_s": wall, "launches": launches}
-        print(f"[main] {label}: {wall:.3f} s wall, "
-              f"{SONG_SECONDS / wall:.2f} x real time, launches {launches} "
-              f"({want[tta]} chunks), residual {resid} LSB on the "
-              f"{n_cov} covered samples, {mix.shape[-1] - n_cov} "
-              "uncovered tail samples silent", flush=True)
+    results, stems = {}, {}
+    for path, spec in PATHS.items():
+        argv = ["-P", ckpt, "-i", song, "-o", out_dir] + spec["flags"]
+        # the card must not run a conv in TF32 on the f32 paths: start
+        # every path from the library's defaults, so that what the CLI
+        # sets is what is tested
+        torch.backends.cudnn.allow_tf32 = True
+        for label in spec["runs"]:
+            tta = label == "tta"
+            wall, launches = run_cli(argv + (["--tta"] if tta else []),
+                                     counters)
+            y, v = read_stems(out_dir, "song")
+            check(y.shape == v.shape == mix.shape, f"{path} {label}: stem "
+                  f"shape {y.shape} vs {mix.shape}")
+            n_cov = 1024 * (mix.shape[-1] // 1024)  # samples the iSTFT covers
+            resid = int(np.abs(y + v - mix)[:, :n_cov].max())
+            tail = int(np.abs(np.concatenate([y, v])[:, n_cov:]).max(initial=0))
+            check(resid <= 2, f"{path} {label}: |Instruments + Vocals - "
+                              f"mixture| = {resid} LSB > 2")
+            check(tail == 0, f"{path} {label}: uncovered tail is not silent")
+            for k, n in launches.items():
+                expect = per_chunk[k] * want[tta] if k in spec["kernels"] else 0
+                check(n == expect, f"{path} {label}: {k} launched {n} times, "
+                                   f"want {expect} ({want[tta]} chunks)")
+            results[path, label] = {"wall_s": wall, "launches": launches}
+            stems[path, label] = (y, v)
+            line = (f"[main] {path} {label}: {wall:.3f} s wall, "
+                    f"{SONG_SECONDS / wall:.2f} x real time, launches "
+                    f"{launches} ({want[tta]} chunks), residual {resid} LSB on "
+                    f"the {n_cov} covered samples, {mix.shape[-1] - n_cov} "
+                    "uncovered tail samples silent")
+            if path == "flat":  # f32 throughout: the plain path's stems
+                ref = stems["plain", "tta" if tta else "warm"]
+                diff = max(int(np.abs(a - b).max()) for a, b in zip(ref, (y, v)))
+                check(diff <= 1, f"flat {label}: stems differ from the plain "
+                                 f"path's by {diff} LSB > 1")
+                line += f"; vs plain path max {diff} LSB (tol 1)"
+            if path == "flat_bf16":
+                snr = [snr_db(a, b)
+                       for a, b in zip(stems["flat", "warm"], (y, v))]
+                check(min(snr) >= BF16_SNR_FLOOR_DB,
+                      f"bf16 {label}: stem SNR {snr} dB against highest, "
+                      f"floor {BF16_SNR_FLOOR_DB}")
+                line += (f"; SNR vs highest: Instruments {snr[0]:.2f} dB, "
+                         f"Vocals {snr[1]:.2f} dB (floor {BF16_SNR_FLOOR_DB})")
+            print(line, flush=True)
     return ckpt, results
 
 
@@ -258,58 +422,74 @@ def phase_reference(tmp, ckpt, seed):
 
     song = os.path.join(tmp, "short.wav")
     audio.write_wav(song, synth_song(4.0, seed + 1), SR)
-    stems = {}
-    for gpu in ("0", "-1"):
-        out_dir = os.path.join(tmp, f"ref{gpu}")
-        cli.main(["-P", ckpt, "-i", song, "-o", out_dir, "--gpu", gpu,
-                  "--exact_length"])
-        stems[gpu] = read_stems(out_dir, "short")
-    diff = max(int(np.abs(a - b).max())
-               for a, b in zip(stems["0"], stems["-1"]))
-    check(diff <= 1, f"card vs CPU stems differ by {diff} LSB > 1")
-    print(f"[reference] 4 s song, card vs CPU (plain recurrence): max "
-          f"{diff} LSB (tol 1)", flush=True)
+    for path in ("plain", "flat"):
+        stems = {}
+        for gpu in ("0", "-1"):
+            out_dir = os.path.join(tmp, f"ref-{path}{gpu}")
+            cli.main(["-P", ckpt, "-i", song, "-o", out_dir, "--gpu", gpu,
+                      "--exact_length"] + PATHS[path]["flags"])
+            stems[gpu] = read_stems(out_dir, "short")
+        diff = max(int(np.abs(a - b).max())
+                   for a, b in zip(stems["0"], stems["-1"]))
+        check(diff <= 1, f"{path}: card vs CPU stems differ by {diff} LSB > 1")
+        print(f"[reference] {path}: 4 s song, card vs CPU (plain versions of "
+              f"the kernels): max {diff} LSB (tol 1)", flush=True)
 
 
 def phase_profile(ckpt, seed):
-    """Device time by kernel name for one warm 60 s separation."""
+    """Device time by kernel name for one warm 60 s separation on each
+    path."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.models import convert, serving
     from vocal_remover_tpu_torch.separate.separator import Separator
 
-    sp = Separator(convert.load_model(ckpt, 2048, 1024), device="cuda")
     wave = synth_song(SONG_SECONDS, seed)
-    sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for path, spec in PATHS.items():
+        model = convert.load_model(ckpt, 2048, 1024)
+        bf16 = "bfloat16" in spec["flags"]
+        if path != "plain":
+            model = serving.serving_variables(
+                model, "bfloat16" if bf16 else None, flat=True)
+        sp = Separator(model, device="cuda",
+                       precision="bfloat16" if bf16 else "highest")
+        sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device kernels only (CPU ops and the profiler's own buffer
-    # activities also carry device time in key_averages)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in ("Buffer Flush", "Activity Buffer Request")]
-    busy, last = 0.0, float("-inf")
-    for s, e in sorted((k.time_range.start, k.time_range.end)
-                       for k in kernels):
-        busy += max(0.0, e - max(s, last))
-        last = max(last, e)
-    by_name = {}
-    for k in kernels:
-        t, n = by_name.get(k.name, (0.0, 0))
-        by_name[k.name] = (t + k.time_range.elapsed_us(), n + 1)
-    total = sum(t for t, _ in by_name.values())
-    print(f"[profile] warm 60 s separation: {wall:.3f} s wall with the "
-          f"profiler on, {len(kernels)} kernel launches, kernel time "
-          f"{total / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms = "
-          f"{100 * busy / 1e6 / wall:.1f}% of wall", flush=True)
-    for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"[profile]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",
-              flush=True)
+        wall_off = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device kernels only (CPU ops and the profiler's own buffer
+        # activities also carry device time in key_averages)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in ("Buffer Flush", "Activity Buffer Request")]
+        busy, last = 0.0, float("-inf")
+        for s, e in sorted((k.time_range.start, k.time_range.end)
+                           for k in kernels):
+            busy += max(0.0, e - max(s, last))
+            last = max(last, e)
+        by_name = {}
+        for k in kernels:
+            t, n = by_name.get(k.name, (0.0, 0))
+            by_name[k.name] = (t + k.time_range.elapsed_us(), n + 1)
+        total = sum(t for t, _ in by_name.values())
+        print(f"[profile] {path}: warm 60 s separation {wall_off:.3f} s wall "
+              f"with the profiler off, {wall:.3f} s with it on, "
+              f"{len(kernels)} kernel launches, kernel time "
+              f"{total / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms = "
+              f"{100 * busy / 1e6 / wall:.1f}% of wall", flush=True)
+        for kname, (t, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+            print(f"[profile]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",
+                  flush=True)
+        del sp, model, prof, kernels
 
 
 def main():
@@ -321,13 +501,17 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
-        from vocal_remover_tpu_torch.nn import config, lstm_kernel
+        from vocal_remover_tpu_torch.nn import (
+            config,
+            flat_conv_kernel,
+            lstm_kernel,
+        )
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e})")
 
-    # every kernel of the main path (name = its csrc/ source): the
-    # wrapper module holding its `launches` count, its launches per
-    # 4-patch chunk (5 band nets x 1 BiLSTM), and its record
+    # every kernel of the main paths (name = its csrc/ source): the
+    # wrapper module holding its `launches` count, and its launches per
+    # 4-patch chunk (5 band nets x 1 BiLSTM; 5 band nets x 4 packed convs)
     kernels = [{
         "name": "lstm_recurrence",
         "route": "cuda",
@@ -335,6 +519,13 @@ def main():
         "replaces": "vocal_remover_tpu/nn/lstm_pallas.py:75",
         "wrapper": lstm_kernel,
         "per_chunk": 5,
+    }, {
+        "name": "flat_conv",
+        "route": "cuda",
+        "source": "vocal_remover_tpu_torch/csrc/flat_conv.cu",
+        "replaces": "vocal_remover_tpu/nn/conv_pack.py:171",
+        "wrapper": flat_conv_kernel,
+        "per_chunk": 20,
     }]
     counters = {k["name"]: k["wrapper"] for k in kernels}
 
@@ -343,6 +534,8 @@ def main():
     phase_build(kernels)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rec_rows = phase_recurrence(gen)
+    flat_rows = phase_flat_conv(args.seed)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, results = phase_main_path(
@@ -352,15 +545,27 @@ def main():
         if args.profile:
             phase_profile(ckpt, args.seed)
 
-    flagship = rec_rows[0]  # T = 128, 2N = 8, H = 64
+    # one record per kernel: its launches on the --flat_conv path (warm
+    # run), its largest error over the f32 cases, and its times at the
+    # flagship's largest launch (recurrence T = 128, 2N = 8, H = 64; flat
+    # conv stg3_full_band_net enc2_conv2 in f32)
+    shown = {
+        "lstm_recurrence": (rec_rows[0], rec_rows),
+        "flat_conv": (
+            next(r for r in flat_rows
+                 if r["label"] == "stg3_full enc2_conv2" and r["dtype"] == "f32"),
+            [r for r in flat_rows if r["dtype"] == "f32"]),
+    }
     record = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
-        "launches": results["warm"]["launches"][k["name"]],
-        "max_abs_err": max(r["max_abs_err"] for r in rec_rows),
-        "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
-        "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"],
-        "library_ms": flagship["library_ms"],
+        "launches": results["flat", "warm"]["launches"][k["name"]],
+        "max_abs_err": max(r["max_abs_err"] for r in shown[k["name"]][1]),
+        "ms": shown[k["name"]][0]["ms"],
+        "plain_ms": shown[k["name"]][0]["plain_ms"],
+        "bound_ms": shown[k["name"]][0]["bound_ms"],
+        "bound_by": shown[k["name"]][0]["bound_by"],
+        "library_ms": shown[k["name"]][0]["library_ms"],
     } for k in kernels]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {

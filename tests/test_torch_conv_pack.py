@@ -1,0 +1,250 @@
+"""GPU port: the flat pixel-packed conv (nn/conv_pack.py,
+nn/flat_conv_kernel.py) against the JAX package's, whose Pallas kernel
+runs in interpret mode on the CPU. On the CPU the port's wrapper takes
+`flat_conv_core_plain`; the CUDA kernel itself is held against that plain
+version on the card (`cuda` marker, chip_smoke.py).
+
+Shape classes are those of tests/test_conv_pack.py with H cut (interpret
+mode is slow): every pack factor is kept.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vocal_remover_tpu.nn import conv_pack as jcp
+from vocal_remover_tpu_torch.nn import conv_pack as tcp
+from vocal_remover_tpu_torch.nn import flat_conv_kernel
+
+torch.set_num_threads(1)
+
+# (cin, cout, h, w): pack 4, 2, 8, 1 (block == pixel), 16
+STRIDE1 = [(32, 64, 8, 256), (64, 64, 8, 256), (16, 32, 8, 512),
+           (128, 128, 8, 64), (8, 8, 8, 1024)]
+# p_in 4 -> p_out 2, 8 -> 4, 2 -> 1
+STRIDE2 = [(32, 64, 8, 256), (16, 32, 8, 256), (64, 128, 8, 256)]
+
+
+def _inputs(c, cout, h, w, k, seed, n=2):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    wk = (rng.standard_normal((k, k, c, cout)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32)
+    return x, wk, b
+
+
+@pytest.mark.parametrize("stride,k,c,cout,p_out", [
+    (1, 3, 32, 64, 4), (1, 3, 64, 64, 2), (1, 3, 16, 32, 8),
+    (1, 3, 128, 128, 1), (1, 3, 8, 8, 16),
+    (2, 3, 32, 64, 2), (2, 3, 16, 32, 4), (2, 3, 64, 128, 1),
+    (1, 1, 32, 48, 4),
+])
+def test_build_flat_layer_equals_jax(stride, k, c, cout, p_out):
+    """Exact: both are the same numpy arithmetic."""
+    _, wk, b = _inputs(c, cout, 1, 1, k, seed=c + cout)
+    ours = tcp.build_flat_layer(wk, b, p_out, stride, act="relu")
+    theirs = jcp.build_flat_layer(wk, b, p_out, stride, act="relu")
+    assert set(ours) == set(theirs)
+    for key in theirs:
+        if key in ("wst", "bias"):
+            np.testing.assert_array_equal(ours[key], theirs[key])
+        else:
+            assert ours[key] == theirs[key], key
+    assert tcp.flat_geometry(k, stride) == jcp.flat_geometry(k, stride)
+
+
+@pytest.mark.parametrize("c,cout,h,w", STRIDE1)
+@pytest.mark.parametrize("act", ["leaky_relu", None])
+def test_stride1_3x3_matches_jax(c, cout, h, w, act):
+    """atol 3e-5, the JAX test's own: same f32 products, another
+    summation order."""
+    x, wk, b = _inputs(c, cout, h, w, 3, seed=c + cout)
+    ref = np.asarray(jcp.flat_conv(jnp.asarray(x), wk, b, act=act,
+                                   interpret=True))
+    out = tcp.flat_conv(torch.from_numpy(x), wk, b, act=act)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=3e-5)
+
+
+@pytest.mark.parametrize("c,cout,h,w", STRIDE2)
+def test_stride2_matches_jax(c, cout, h, w):
+    x, wk, b = _inputs(c, cout, h, w, 3, seed=7)
+    ref = np.asarray(jcp.flat_conv(jnp.asarray(x), wk, b, stride=2,
+                                   act="leaky_relu", interpret=True))
+    out = tcp.flat_conv(torch.from_numpy(x), wk, b, stride=2,
+                        act="leaky_relu")
+    assert out.shape == ref.shape == (2, h // 2, w // 2, cout)
+    np.testing.assert_allclose(out.numpy(), ref, atol=3e-5)
+
+
+def test_1x1_matches_jax():
+    x, wk, b = _inputs(32, 48, 6, 256, 1, seed=9)
+    ref = np.asarray(jcp.flat_conv(jnp.asarray(x), wk, b, act="relu",
+                                   interpret=True))
+    out = tcp.flat_conv(torch.from_numpy(x), wk, b, act="relu")
+    np.testing.assert_allclose(out.numpy(), ref, atol=3e-5)
+
+
+def test_flat_chain_encoder_levels():
+    """flat_layer_apply flat to flat like the encoder stack: s1 -> s2 ->
+    s1, against the same chain in the JAX package, layer by layer (atol
+    3e-5) and at the end (atol 1e-4, the JAX test's own for a chain)."""
+    rng = np.random.default_rng(13)
+    n, h, w, c = 2, 8, 256, 32
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    specs = [(c, c, 1, 0.2), (c, 2 * c, 2, 0.2), (2 * c, 2 * c, 1, 0.1)]
+    p1, wb = 128 // c, w // (128 // c)
+    jf = jcp.to_flat(jnp.asarray(x), p1)
+    tf = tcp.to_flat(torch.from_numpy(x), p1)
+    rows, p = h, p1
+    for cin, cout, stride, scale in specs:
+        wk = (rng.standard_normal((3, 3, cin, cout)) * scale).astype(
+            np.float32)
+        b = rng.standard_normal(cout).astype(np.float32)
+        p //= stride
+        jf = jcp.flat_layer_apply(jcp.build_flat_layer(wk, b, p, stride),
+                                  jf, rows, wb, interpret=True)
+        tf = tcp.flat_layer_apply(tcp.build_flat_layer(wk, b, p, stride),
+                                  tf, rows, wb)
+        rows //= stride
+        assert tuple(tf.shape) == jf.shape == (n, rows * wb, p * cout)
+    out = tcp.from_flat(tf, h // 2, w // 2, 2 * c).numpy()
+    ref = np.asarray(jcp.from_flat(jf, h // 2, w // 2, 2 * c))
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_bf16_io():
+    """bf16 in and out, compared in float32: against the f32 conv with
+    the JAX test's own bounds, and against the JAX kernel's bf16 output
+    within one bf16 step of the largest value (both round the same f32
+    sum, summed in another order)."""
+    x, wk, b = _inputs(32, 32, 8, 256, 3, seed=11, n=1)
+    ref32 = tcp.flat_conv(torch.from_numpy(x), wk, b,
+                          act="leaky_relu").numpy()
+    jout = np.asarray(jcp.flat_conv(jnp.asarray(x, jnp.bfloat16), wk, b,
+                                    act="leaky_relu", interpret=True)
+                      ).astype(np.float32)
+    out = tcp.flat_conv(torch.from_numpy(x).bfloat16(), wk, b,
+                        act="leaky_relu")
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    assert np.abs(out - ref32).max() < 0.1
+    assert np.abs(out - ref32).mean() < 0.01
+    assert np.abs(out - jout).max() <= 2.0 ** -7 * np.abs(jout).max()
+    # f32 output from bf16 operands is the unrounded sum
+    out32 = tcp.flat_conv(torch.from_numpy(x).bfloat16(), wk, b,
+                          act="leaky_relu", out_dtype=torch.float32)
+    assert out32.dtype == torch.float32
+    assert np.abs(out32.numpy() - ref32).max() < 0.1
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,dilation", [
+    ((1, 8, 256, 32), (3, 3, 32, 64), 1, 2),     # dilation
+    ((1, 8, 250, 32), (3, 3, 32, 64), 1, 1),     # ragged width
+    ((1, 9, 256, 32), (3, 3, 32, 64), 2, 1),     # odd H at stride 2
+    ((1, 8, 256, 128), (3, 3, 128, 64), 1, 1),   # p_out * cout < 128
+    ((1, 8, 256, 32), (3, 3, 32, 64), 1, 1),     # supported
+    ((1, 8, 256, 32), (3, 3, 32, 64), 2, 1),     # supported
+    ((1, 8, 64, 32), (3, 3, 32, 64), 1, 1),      # wb = 16: supported
+    ((1, 8, 16, 32), (3, 3, 32, 64), 1, 1),      # wb = 4: the sublane rule
+    ((1, 8, 256, 32), (5, 5, 32, 64), 1, 1),     # 5x5
+])
+def test_flat_conv_supported_answers_as_jax(x_shape, w_shape, stride,
+                                            dilation):
+    assert tcp.flat_conv_supported(x_shape, w_shape, stride, dilation) == \
+        jcp.flat_conv_supported(x_shape, w_shape, stride, dilation)
+
+
+def test_flat_conv_rejects_unsupported_shapes():
+    x = torch.zeros(1, 8, 250, 32)
+    with pytest.raises(ValueError, match="does not take"):
+        tcp.flat_conv(x, np.zeros((3, 3, 32, 64), np.float32))
+
+
+def _core_args(dtype=torch.float32, n=1, h=4, wb=8, l_in=16, nl=16,
+               stride=1):
+    rowtaps, s_list = tcp.flat_geometry(3, stride)
+    return dict(
+        xf=torch.zeros(n, stride * h * wb, l_in, dtype=dtype),
+        wst=torch.zeros(3, l_in, len(s_list) * nl, dtype=dtype),
+        bias=torch.zeros(nl), wb=wb, h_out=h, rowtaps=rowtaps,
+        s_list=s_list, act="relu", out_dtype=dtype)
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(xf=torch.zeros(1, 32, 16, dtype=torch.float64)), TypeError),
+    (dict(wst=torch.zeros(3, 16, 48, dtype=torch.bfloat16)), TypeError),
+    (dict(bias=torch.zeros(16, dtype=torch.bfloat16)), TypeError),
+    (dict(out_dtype=torch.float16), TypeError),
+    (dict(xf=torch.zeros(1, 30, 16)), ValueError),       # rows != h * wb
+    (dict(wst=torch.zeros(3, 12, 48)), ValueError),      # L mismatch
+    (dict(wst=torch.zeros(2, 16, 48)), ValueError),      # tap count
+    (dict(bias=torch.zeros(12)), ValueError),            # lanes
+    (dict(s_list=(0, 1)), ValueError),                   # not a geometry
+    (dict(s_list=(-1, 0)), ValueError),                  # s2 shifts, s1 taps
+    (dict(rowtaps=((None, 0), (None, 2), (None, 1))), ValueError),
+    (dict(act="gelu"), ValueError),
+    (dict(xf=torch.zeros(32, 16)), ValueError),          # rank
+])
+def test_core_rejects_bad_operands(change, error):
+    """The wrapper validates before it picks a path, so the CPU sees the
+    same refusals as the card."""
+    args = {**_core_args(), **change}
+    with pytest.raises(error):
+        flat_conv_kernel.flat_conv_core(**args)
+
+
+def test_plain_calls_are_not_counted():
+    before = flat_conv_kernel.launches
+    flat_conv_kernel.flat_conv_core(**_core_args())
+    assert flat_conv_kernel.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_core_rejects_non_contiguous_on_card(cuda_device):
+    args = _core_args()
+    args = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+            for k, v in args.items()}
+    args["xf"] = torch.zeros(1, 16, 32, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flat_conv_kernel.flat_conv_core(**args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("c,cout,h,w,stride,k", [
+    (32, 64, 40, 256, 1, 3), (32, 64, 40, 256, 2, 3), (8, 8, 16, 1024, 1, 3),
+    (32, 48, 21, 256, 1, 1), (128, 128, 23, 64, 1, 3),
+])
+def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, c, cout, h, w,
+                                      stride, k):
+    """The CUDA kernel against its plain version on the same device
+    tensors; bf16 is compared in the working type (one bf16 step at the
+    output's magnitude)."""
+    x, wk, b = _inputs(c, cout, h, w, k, seed=5)
+    p_out = max(1, 128 // (c * stride))
+    layer = tcp.build_flat_layer(wk, b, p_out, stride)
+    xf = tcp.to_flat(torch.from_numpy(x).to(cuda_device, dtype),
+                     layer["p_in"])
+    args = dict(
+        xf=xf, wst=torch.from_numpy(layer["wst"]).to(cuda_device, dtype),
+        bias=torch.from_numpy(layer["bias"]).to(cuda_device),
+        wb=(w // stride) // p_out, h_out=h // stride,
+        rowtaps=layer["rowtaps"], s_list=layer["s_list"], act="leaky_relu",
+        out_dtype=dtype)
+    before = flat_conv_kernel.launches
+    out = flat_conv_kernel.flat_conv_core(**args)
+    torch.cuda.synchronize()
+    assert flat_conv_kernel.launches == before + 1
+    ref = flat_conv_kernel.flat_conv_core_plain(**args)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol * scale

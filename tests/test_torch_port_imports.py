@@ -45,6 +45,28 @@ def test_port_imports_no_jax():
                 f"{os.path.relpath(path, ROOT)} imports {mod}")
 
 
+@pytest.mark.parametrize("module,source", [
+    ("nn/lstm_kernel.py", "csrc/lstm_recurrence.cu"),
+    ("nn/flat_conv_kernel.py", "csrc/flat_conv.cu"),
+])
+def test_kernel_wrappers_have_no_fallback(module, source):
+    """A wrapper launches its kernel or raises: no `try` around the
+    launch, no conv / compile call to fall back on, a `launches` count,
+    and its CUDA source beside it."""
+    pkg = os.path.join(ROOT, "vocal_remover_tpu_torch")
+    assert os.path.exists(os.path.join(pkg, source))
+    path = os.path.join(pkg, module)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    called = {n.func.attr for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+    assert not called & {"conv2d", "compile", "conv_general_dilated"}
+    assert any(isinstance(n, ast.Assign) and n.targets[0].id == "launches"
+               for n in tree.body if isinstance(n, ast.Assign)
+               and isinstance(n.targets[0], ast.Name))
+
+
 def test_pcm16_encode_matches_jax(rng):
     x = np.concatenate([rng.uniform(-1.2, 1.2, 4000),
                         np.arange(-4, 5) / 65536.0,  # ties round to even

@@ -7,9 +7,13 @@ single-file device path: STFT -> CascadedNet masks -> iSTFT, PCM16 out,
 song lengths padded to 30 s buckets (--exact_length turns that off).
 Runs on card `--gpu` (default 0); `--gpu -1` runs on the CPU. Without a
 card and without `--gpu -1` it raises rather than fall back to the CPU.
-`--lstm_impl` is accepted for compatibility: on the card the BiLSTM
-recurrence always runs as the CUDA kernel. The other modes of the JAX
-CLI are refused with a message naming the slice that ports them.
+`--flat_conv` folds the BatchNorms and runs the enc2 / enc3 convs of
+every band net as the flat pixel-packed CUDA kernel; `--precision`
+takes `highest` (full float32), `default` (TF32 on the card) and
+`bfloat16` (serving transform: folded BatchNorm, bf16 weights and
+activations). `--lstm_impl` is accepted for compatibility: on the card
+the BiLSTM recurrence always runs as the CUDA kernel. The other modes of
+the JAX CLI are refused with a message naming the slice that ports them.
 """
 
 from __future__ import annotations
@@ -29,13 +33,15 @@ DEFAULT_MODEL_PATH = os.path.join(MODEL_DIR, "baseline.vrt.npz")
 
 # flag -> the later slice of the port that brings it
 _LATER = {
-    "input_dir": "directory mode (serving slice)",
-    "stream": "segment streaming (serving slice)",
-    "postprocess": "the spectrogram path with merge_artifacts (a later slice)",
-    "output_image": "the spectrogram path with images (a later slice)",
-    "flat_conv": "the flat-conv kernels and serving transforms (next slice)",
-    "group": "cross-song patch batching (serving slice)",
-    "data_parallel": "multi-card inference (parallelism slice)",
+    "input_dir": "directory mode (slice 2b, ROADMAP.md A8)",
+    "stream": "segment streaming (slice 2b, ROADMAP.md A8)",
+    "group": "cross-song patch batching (slice 2b, ROADMAP.md A8)",
+    "postprocess": "the spectrogram path with merge_artifacts (a later "
+                   "slice, ROADMAP.md A5)",
+    "output_image": "the spectrogram path with images (a later slice, "
+                    "ROADMAP.md A5)",
+    "data_parallel": "multi-card inference (parallelism slice, ROADMAP.md "
+                     "A10)",
     "profile": "tracing (a later slice)",
 }
 
@@ -68,12 +74,22 @@ def build_parser():
     p.add_argument('--output_dir', '-o', type=str, default="")
     p.add_argument('--precision', type=str, default='highest',
                    choices=['highest', 'default', 'bfloat16', 'int8'],
-                   help="only 'highest' (full float32) is ported yet")
+                   help='highest = full float32, no TF32 (default); '
+                        'default = float32 activations with TF32 '
+                        'multiplies (the card has no bf16 multiply for '
+                        'f32 tensors); bfloat16 = serving mode (folded '
+                        'BatchNorm, bf16-resident weights and '
+                        'activations, f32 accumulation); int8 is not '
+                        'ported yet (ROADMAP.md A13)')
     p.add_argument('--lstm_impl', type=str, default='scan',
                    choices=['scan', 'pallas'],
-                   help='accepted for compatibility; the card always runs '
-                        'the CUDA recurrence kernel')
-    p.add_argument('--flat_conv', action='store_true')
+                   help='accepted for compatibility and ignored: the card '
+                        'always runs the CUDA recurrence kernel, the CPU '
+                        'its plain version')
+    p.add_argument('--flat_conv', action='store_true',
+                   help='fold the BatchNorms and run the band nets\' '
+                        'enc2..enc3 convs as the flat pixel-packed CUDA '
+                        'kernel (nn/conv_pack.py, csrc/flat_conv.cu)')
     p.add_argument('--profile', type=str, default=None, metavar='DIR')
     p.add_argument('--stream', action='store_true')
     p.add_argument('--exact_length', action='store_true',
@@ -88,9 +104,9 @@ def _refuse_unported(parser, args):
         if getattr(args, flag) != parser.get_default(flag):
             raise SystemExit(f"--{flag} is not ported to the GPU package "
                              f"yet: it comes with {slice_name}")
-    if args.precision != 'highest':
-        raise SystemExit(f"--precision {args.precision} is not ported yet: "
-                         "the bf16/int8 modes come with the serving slice")
+    if args.precision == 'int8':
+        raise SystemExit("--precision int8 is not ported to the GPU package "
+                         "yet: it comes with int8 serving (ROADMAP.md A13)")
     if not args.pretrained_model.endswith('.npz'):
         raise SystemExit(f"{args.pretrained_model!r}: only .vrt.npz "
                          "checkpoints are ported yet (.pth and .vrtx "
@@ -110,8 +126,18 @@ def main(argv=None):
     with _stage('load model'):
         model = convert.load_model(args.pretrained_model, args.n_fft,
                                    args.hop_length, 32, 128)
+        if args.precision == 'bfloat16' or args.flat_conv:
+            # serving transform: eval-BN folding, bf16-resident weights
+            # for the bf16 mode, packed enc2/enc3 weights for --flat_conv;
+            # 'highest' / 'default' keep float32 weights
+            from vocal_remover_tpu_torch.models import serving
+
+            model = serving.serving_variables(
+                model, 'bfloat16' if args.precision == 'bfloat16' else None,
+                flat=args.flat_conv)
         sp = Separator(model, batchsize=args.batchsize,
-                       cropsize=args.cropsize, device=device)
+                       cropsize=args.cropsize, device=device,
+                       precision=args.precision)
 
     with _stage('load audio'):
         X, sr = audio.load(args.input, sr=args.sr)

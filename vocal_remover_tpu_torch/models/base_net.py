@@ -1,10 +1,22 @@
 """Single U-Net with ASPP bottleneck and BiLSTM branch (NCHW).
 
-Counterpart of vocal_remover_tpu/models/base_net.py, the non-flat branch
-(reference lib/nets.py:8-41): encoders at widths nout*{1,2,4,6,8} (stride
-2 from enc2), ASPP bottleneck, three decoders with skips, a BiLSTM
-branch concatenated at the dec2 scale (T = cropsize / 2 frames), and a
-final decoder.
+Counterpart of vocal_remover_tpu/models/base_net.py (reference
+lib/nets.py:8-41): encoders at widths nout*{1,2,4,6,8} (stride 2 from
+enc2), ASPP bottleneck, three decoders with skips, a BiLSTM branch
+concatenated at the dec2 scale (T = cropsize / 2 frames), and a final
+decoder.
+
+The flat branch (serving): when `models/serving.pack_flat_encoders` has
+attached packed weights (`flat_enc`) and the input's geometry passes
+`_flat_supported`, the four convs of enc2 and enc3 run as flat
+pixel-packed kernels chained flat to flat (nn/conv_pack.py); enc1 stays
+a plain conv. Where the NHWC view is made: the port's activations are
+NCHW, so e1 is copied once per band net into NHWC (`permute` +
+`contiguous`, a no-op for a channels_last e1), of which `to_flat` is a
+free view; the four layers never leave the flat layout; e2 and e3 come
+back once, as NCHW-shaped views of the flat outputs (channels_last
+strides, no copy), which the convs, concats and resizes downstream take
+as they are.
 """
 
 from __future__ import annotations
@@ -12,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vocal_remover_tpu_torch.nn import conv_pack as cp
 from vocal_remover_tpu_torch.nn.layers import (
     ASPPModule,
     Conv2DBNActiv,
@@ -20,11 +33,26 @@ from vocal_remover_tpu_torch.nn.layers import (
     LSTMModule,
 )
 
+# the packed layers, in chain order: (name, pack divisor, stride)
+FLAT_LAYERS = (("enc2_conv1", 2, 2), ("enc2_conv2", 2, 1),
+               ("enc3_conv1", 4, 2), ("enc3_conv2", 4, 1))
+
+
+class FlatLayer(nn.Module):
+    """Packed operands of one flat conv (`build_flat_layer`), as
+    buffers: `wst` in the weight dtype, `bias` always float32."""
+
+    def __init__(self, wst: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("wst", wst)
+        self.register_buffer("bias", bias)
+
 
 class BaseNet(nn.Module):
     def __init__(self, nin, nout, nin_lstm, nout_lstm,
                  dilations=((4, 2), (8, 4), (12, 6))):
         super().__init__()
+        self.nout = nout
         self.enc1 = Conv2DBNActiv(nin, nout, 3, 1, 1)
         self.enc2 = Encoder(nout, nout * 2, 3, 2, 1)
         self.enc3 = Encoder(nout * 2, nout * 4, 3, 2, 1)
@@ -36,11 +64,50 @@ class BaseNet(nn.Module):
         self.dec2 = Decoder(nout * (2 + 4), nout * 2, 3, 1, 1)
         self.lstm_dec2 = LSTMModule(nout * 2, nin_lstm, nout_lstm)
         self.dec1 = Decoder(nout * (1 + 2) + 1, nout * 1, 3, 1, 1)
+        # ModuleDict of FlatLayer once pack_flat_encoders has run
+        self.flat_enc = None
+
+    def _flat_p1(self):
+        return max(1, 128 // self.nout)
+
+    def _flat_supported(self, x_shape):
+        """x_shape is NCHW. Answers as the JAX package's predicate, so
+        both take the flat branch for the same nets; `(w // p1) % 8` is
+        the TPU's sublane rule, which the CUDA kernel does not need."""
+        n, c, h, w = x_shape
+        p1 = self._flat_p1()
+        return (p1 >= 4 and w % p1 == 0 and (w // p1) % 8 == 0
+                and h % 4 == 0)
+
+    def _apply_encoders_flat(self, e1):
+        """e1 (N, nout, F, T) -> e2 (N, 2 nout, F/2, T/2), e3 (N, 4 nout,
+        F/4, T/4) through the four packed layers."""
+        n, c, h, w = e1.shape
+        p1 = self._flat_p1()
+        wb = w // p1  # invariant across levels (W and P halve together)
+        f = cp.to_flat(e1.permute(0, 2, 3, 1).contiguous(), p1)
+        rows, outs = h, {}
+        for name, div, stride in FLAT_LAYERS:
+            rowtaps, s_list = cp.flat_geometry(3, stride)
+            arrs = self.flat_enc[name]
+            f = cp.flat_layer_apply(
+                {"wst": arrs.wst, "bias": arrs.bias, "rowtaps": rowtaps,
+                 "s_list": s_list, "stride": stride, "act": "leaky_relu"},
+                f, rows, wb)
+            rows //= stride
+            outs[name] = f
+        e2 = cp.from_flat(outs["enc2_conv2"], h // 2, w // 2, 2 * c)
+        e3 = cp.from_flat(outs["enc3_conv2"], h // 4, w // 4, 4 * c)
+        return e2.permute(0, 3, 1, 2), e3.permute(0, 3, 1, 2)
 
     def forward(self, x):
         e1 = self.enc1(x)
-        e2 = self.enc2(e1)
-        e3 = self.enc3(e2)
+        if self.flat_enc is not None and not self.training \
+                and self._flat_supported(x.shape):
+            e2, e3 = self._apply_encoders_flat(e1)
+        else:
+            e2 = self.enc2(e1)
+            e3 = self.enc3(e2)
         e4 = self.enc4(e3)
         e5 = self.enc5(e4)
         h = self.aspp(e5)

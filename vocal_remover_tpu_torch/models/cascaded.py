@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from vocal_remover_tpu_torch.models.base_net import BaseNet
+from vocal_remover_tpu_torch.nn import config
 from vocal_remover_tpu_torch.nn.layers import (
     Conv2d,
     Conv2DBNActiv,
@@ -79,6 +80,11 @@ class CascadedNet(nn.Module):
                 f"input (n_fft={self.n_fft}), got {tuple(x.shape)}"
             )
         x = x[:, :, :self.max_bin]
+        # bf16 mode: cast once at the top, so the stage concats do not
+        # promote back to float32
+        dt = config.get_compute_dtype()
+        if dt == torch.bfloat16 and x.dtype == torch.float32:
+            x = x.to(dt)
         bandw = x.shape[2] // 2
         l1_in = x[:, :, :bandw]
         h1_in = x[:, :, bandw:]
@@ -94,7 +100,10 @@ class CascadedNet(nn.Module):
         return self._head(self.out.weight, f3)
 
     def _head(self, kernel, feat):
-        m = torch.nn.functional.conv2d(feat.float(), kernel.float())
+        """The mask head always runs in full float32, whatever the
+        precision mode and the weights' resident dtype."""
+        with config.full_float32():
+            m = torch.nn.functional.conv2d(feat.float(), kernel.float())
         if self.is_complex:
             m = self.bounded_mask(m)
         else:

@@ -6,6 +6,10 @@ kernels, (in, out) dense and LSTM weights, BN scale/bias/mean/var) plus
 a JSON config record; int8-quantized leaves are dequantized on load.
 `from_jax_variables` / `to_jax_variables` translate between that tree
 and the port's modules, whose state_dict keys are the reference's.
+`to_jax_variables` also reads a serving-transformed module
+(models/serving.py) back as the JAX package's transformed tree: folded
+conv kernels, identity-BN shifts, and `<band net>/flat_enc/<layer>/wst`
+and `bias`; `weight_dtypes` gives each leaf's resident dtype.
 """
 
 from __future__ import annotations
@@ -124,6 +128,8 @@ def _jax_path(key: str) -> tuple[str, ...] | None:
         return (k[0], "conv")
     top = _TOP_INV.get(tuple(k[:2]))
     p = [top, *k[2:]] if top else list(k)
+    if "flat_enc" in p:  # <net>.flat_enc.<layer>.{wst,bias}, as it is
+        return tuple(p)
     for i in range(len(p) - 1):  # only ASPP has a conv1 with a child "1"
         if p[i:i + 2] == ["conv1", "1"]:
             p[i:i + 2] = ["pooled_conv"]
@@ -174,14 +180,27 @@ def from_jax_variables(model: torch.nn.Module, tree) -> torch.nn.Module:
 
 def to_jax_variables(model: torch.nn.Module):
     """The module's weights as a JAX variables tree of numpy arrays
-    (inverse of `from_jax_variables`)."""
+    (inverse of `from_jax_variables`). bf16-resident leaves come back
+    as float32 arrays of the same values (numpy has no bfloat16);
+    `weight_dtypes` tells which they are."""
     flat = {}
     for key, v in model.state_dict().items():
         path = _jax_path(key)
         if path is not None:
+            v = v.detach().cpu()
+            if v.dtype == torch.bfloat16:
+                v = v.float()
             flat["/".join(path)] = np.ascontiguousarray(
-                _to_jax_layout(v.detach().cpu().numpy()))
+                _to_jax_layout(v.numpy()))
     return _unflatten(flat)
+
+
+def weight_dtypes(model: torch.nn.Module) -> dict[str, str]:
+    """'/'-joined JAX tree path -> resident dtype name ('float32',
+    'bfloat16') of every leaf of `to_jax_variables(model)`."""
+    return {"/".join(path): str(v.dtype).replace("torch.", "")
+            for key, v in model.state_dict().items()
+            if (path := _jax_path(key)) is not None}
 
 
 def model_config(model) -> dict:

@@ -1,24 +1,94 @@
 """Numerics configuration for the port.
 
-Only `highest` precision exists in this slice: every float32 convolution
-and matrix product runs in full float32. cuDNN runs float32 convolutions
-in TF32 by default, which would put the stems far off the JAX f32 path,
-so `set_precision("highest")` turns TF32 off for cuDNN and for cuBLAS.
-The faster modes (`default`, `bfloat16`) come with the serving slice.
+Counterpart of vocal_remover_tpu/nn/config.py: one global precision
+mode, and the compute dtype that follows from it.
+
+  * "highest"  - every float32 convolution and matrix product runs in
+                 full float32. cuDNN runs float32 convolutions in TF32 by
+                 default, which would put the stems far off the JAX f32
+                 path, so this mode turns TF32 off for cuDNN and cuBLAS.
+  * "default"  - float32 activations, and the card's reduced-precision
+                 multiply allowed: TF32 on for cuDNN and cuBLAS. The JAX
+                 package's `default` lets the TPU's matrix unit multiply
+                 in bf16 while activations stay f32; the H100 has no such
+                 mode for f32 tensors. Its counterpart ("a faster, less
+                 exact multiply that the hardware offers, f32 in and
+                 out") is TF32, so `default` on the card is TF32 and NOT
+                 bf16.
+  * "bfloat16" - bf16 activations and weights, f32 accumulation (the
+                 tensor cores' bf16 mode; the flat-conv kernel
+                 accumulates in f32 too). The parts that stay float32
+                 (BiLSTM, its dense head, the mask head) run with TF32
+                 off.
+
+The mask head and the BiLSTM's dense head run in full float32 in every
+mode (`full_float32`), as the JAX package pins them to HIGHEST.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-PRECISIONS = ("highest",)
+PRECISIONS = ("highest", "default", "bfloat16")
+
+_precision = "highest"
+_compute_dtype = torch.float32
+
+
+def _set_tf32(allow: bool):
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def _get_tf32() -> tuple[bool, bool]:
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
 
 
 def set_precision(p: str = "highest"):
+    global _precision, _compute_dtype
     if p not in PRECISIONS:
-        raise ValueError(
-            f"precision {p!r} is not ported yet (only 'highest'); the "
-            "bf16 modes come with the serving slice"
-        )
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+        raise ValueError(f"precision {p!r}: expected one of {PRECISIONS} "
+                         "(int8 serving is ROADMAP.md A13)")
+    _precision = p
+    _compute_dtype = torch.bfloat16 if p == "bfloat16" else torch.float32
+    _set_tf32(p == "default")
+
+
+def get_precision() -> str:
+    return _precision
+
+
+def get_compute_dtype() -> torch.dtype:
+    """The dtype convolutions cast their input and weight to."""
+    return _compute_dtype
+
+
+@contextlib.contextmanager
+def precision(p: str):
+    """Run a block under precision `p`; restores the mode, the compute
+    dtype and both TF32 switches."""
+    global _precision, _compute_dtype
+    old = (_precision, _compute_dtype, _get_tf32())
+    set_precision(p)
+    try:
+        yield
+    finally:
+        _precision, _compute_dtype, (cudnn, matmul) = old
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextlib.contextmanager
+def full_float32():
+    """TF32 off for the block, whatever the mode (the mask head and the
+    BiLSTM's dense head)."""
+    cudnn, matmul = _get_tf32()
+    _set_tf32(False)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul

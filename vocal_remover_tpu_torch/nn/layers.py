@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from vocal_remover_tpu_torch.nn import config
 from vocal_remover_tpu_torch.nn import functional as F
 from vocal_remover_tpu_torch.nn.lstm import BiLSTM
 from vocal_remover_tpu_torch.ops.resize import resize_bilinear, upsample2x
@@ -55,7 +56,11 @@ class Linear(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x):
-        return torch.nn.functional.linear(x, self.weight, self.bias)
+        """Full float32 in every precision mode (the JAX package pins
+        this product to HIGHEST); bf16-resident weights are cast up."""
+        with config.full_float32():
+            return torch.nn.functional.linear(x.float(), self.weight.float(),
+                                              self.bias.float())
 
 
 class BatchNorm(nn.Module):
@@ -175,7 +180,10 @@ class ASPPModule(nn.Module):
 
 class LSTMModule(nn.Module):
     """1x1 conv squeeze to one channel -> per-frame BiLSTM over frequency
-    vectors -> Dense + BatchNorm1d + ReLU, back to (N, 1, F, T)."""
+    vectors -> Dense + BatchNorm1d + ReLU, back to (N, 1, F, T). The
+    BiLSTM and the dense head run in float32; in bf16 mode the branch's
+    output is cast back to the activation dtype, so the concat in
+    BaseNet does not promote the decoder to float32."""
 
     def __init__(self, nin_conv, nin_lstm, nout_lstm):
         super().__init__()
@@ -191,4 +199,5 @@ class LSTMModule(nn.Module):
         h = self.lstm(h)  # (T, N, nout_lstm)
         h = F.relu(self.dense(h.reshape(-1, self.nout_lstm)))
         h = h.reshape(nframes, n, self.nin_lstm)
-        return h.permute(1, 2, 0).unsqueeze(1)  # (N, 1, F, T)
+        h = h.permute(1, 2, 0).unsqueeze(1)  # (N, 1, F, T)
+        return h.to(x.dtype) if x.dtype == torch.bfloat16 else h

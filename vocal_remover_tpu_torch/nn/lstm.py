@@ -7,7 +7,9 @@ projection for all timesteps is one matrix product outside the kernel
 (as XLA computes it outside Pallas), the backward direction is reversed
 in time and stacked on the batch axis, and the recurrence
 (nn/lstm_kernel.py) runs both directions at once in float32. Gate order
-follows torch: input, forget, cell, output.
+follows torch: input, forget, cell, output. The whole BiLSTM runs in
+float32 in every precision mode (vocal_remover_tpu/nn/lstm.py:54): a bf16
+input and bf16-resident weights are cast up on the way in.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ def bilstm(params, x):
     params: {"fwd": d, "bwd": d} with d = {"w_ih": (In, 4H), "w_hh":
     (H, 4H), "b_ih": (4H,), "b_hh": (4H,)} (the JAX package's layout)."""
     x = x.float()
-    pf, pb = params["fwd"], params["bwd"]
+    pf, pb = ({k: v.float() for k, v in params[d].items()}
+              for d in ("fwd", "bwd"))
     n = x.shape[1]
     xg_f = torch.einsum("tni,ih->tnh", x, pf["w_ih"]) + pf["b_ih"] + pf["b_hh"]
     xg_b = (torch.einsum("tni,ih->tnh", x.flip(0), pb["w_ih"])

@@ -47,11 +47,16 @@ def _to_i16(w):
 
 class Separator:
     def __init__(self, model, batchsize: int = 4, cropsize: int = 256,
-                 device=None):
+                 device=None, precision: str = "highest"):
         """Moves `model` to `device` (default `cuda`; raises without a
-        card unless the CPU is asked for) and sets full-float32
-        numerics (no TF32)."""
-        config.set_precision("highest")
+        card unless the CPU is asked for). Every separation runs under
+        `precision` (nn/config.py; default full float32, no TF32). A
+        serving-transformed model (models/serving.py) is taken as it
+        is; `bfloat16` pairs with bf16-cast weights."""
+        if precision not in config.PRECISIONS:
+            raise ValueError(f"precision {precision!r}: expected one of "
+                             f"{config.PRECISIONS}")
+        self.precision = precision
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.offset = model.offset
@@ -131,7 +136,8 @@ class Separator:
             wave = pcm16_encode(wave)
         x = torch.from_numpy(np.ascontiguousarray(wave)).to(self.device)
         x = x.float() / 32768.0 if pcm16_io else x.float()
-        y, v = self._run(x, wave.shape[-1], tta)
+        with config.precision(self.precision):
+            y, v = self._run(x, wave.shape[-1], tta)
         if pcm16_io:
             y, v = _to_i16(y), _to_i16(v)
         return y.cpu().numpy()[:, :n_orig], v.cpu().numpy()[:, :n_orig]
