@@ -13,7 +13,11 @@ Phases (each prints a line; any failure exits non-zero):
      tolerance, kernel / plain / library times from CUDA events,
      roofline bound from the useful work): the BiLSTM recurrence, and
      the flat conv at all four layers of stg3_full_band_net and of
-     stg1_high_band_net in f32 and bf16, plus ragged cases;
+     stg1_high_band_net in f32 and bf16, plus ragged cases; the three
+     channel-major conv kernels (variant A = conv_chw, C = conv_shift,
+     D = conv_tapdot) at the conv kernel lab's shapes, (8, 32, 1024, 256)
+     and (8, 64, 512, 128), in f32 and bf16, A also at stride 2, 1x1 and
+     a ragged shape, C and D at ragged shapes;
   4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
      a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
@@ -28,6 +32,11 @@ Phases (each prints a line; any failure exits non-zero):
   5. reference: a 4 s song through the CLI on the card and on the CPU
      (plain versions of both kernels), plain and --flat_conv: stems
      within 1 LSB;
+  6. lab path: the port's two conv tools at their default shapes and dtype
+     (scripts/conv_kernel_lab.py: variants A, C, D chained and checked
+     against conv2d; scripts/bench_conv_kernel.py: variant A against the
+     library's routes), with every launch count set to 0 before and held
+     to what the flags imply after;
   then the kernels' JSON line, and the device line last.
 --profile adds a torch.profiler breakdown of one warm separation on each
 of the three paths.
@@ -40,6 +49,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -273,6 +284,186 @@ def phase_flat_conv(seed):
         del x32
     return rows
 
+# the conv kernel lab's shapes (N, C, H, W): the flagship's full-width
+# shallow levels at batch 8
+LAB_SHAPES = ((8, 32, 1024, 256), (8, 64, 512, 128))
+
+
+def chw_conv_cases():
+    """(label, N, Cin, Cout, H, W, k, stride, variants): the lab's two
+    shapes for all three variants; for A also a stride-2 conv through
+    space_to_depth, a 1x1 and a ragged shape; for C and D ragged
+    shapes, one wider than C's 256-lane tile."""
+    cases = [(f"lab {c}ch", n, c, c, h, w, 3, 1, "ACD")
+             for n, c, h, w in LAB_SHAPES]
+    cases += [("stride 2", 8, 32, 64, 1024, 256, 3, 2, "A"),
+              ("1x1", 4, 64, 32, 256, 128, 1, 1, "A"),
+              ("ragged", 2, 26, 32, 33, 40, 3, 1, "ACD"),
+              ("ragged wide", 2, 5, 7, 9, 300, 3, 1, "CD")]
+    return cases
+
+
+def phase_chw_convs(seed):
+    """The three channel-major conv kernels against their plain versions
+    on the card.
+
+    Tolerances, as for the flat conv: f32 in and out 1e-4 absolute (the
+    same f32 products, summed in another order, outputs of order 1); bf16
+    in and out, compared in the working type: 2^-7 of the largest output
+    (one bf16 step there: kernel and plain version round the same f32
+    sum, which they reach in another order).
+    Bound: the conv's USEFUL work, whatever computes it: FLOPs = 2 N H_out
+    W_out Cout k k Cin over the f32 FFMA peak (f32) or the bf16
+    tensor-core peak (bf16), bytes = input + output + weights + bias once.
+    Library yardstick (never called by the port's kernels' wrappers): one
+    torch.nn.functional.conv2d with bias on the NCHW tensor, plus the
+    activation, in contiguous and in channels_last memory format; the
+    faster of the two is reported and named."""
+    from vocal_remover_tpu_torch.nn import (
+        conv_chw,
+        conv_chw_kernel,
+        conv_shift_kernel,
+        conv_tapdot_kernel,
+    )
+    from vocal_remover_tpu_torch.scripts import conv_kernel_lab as lab
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for label, n, cin, cout, h, w, k, stride, variants in chw_conv_cases():
+        wk = (rng.standard_normal((k, k, cin, cout))
+              / np.sqrt(k * k * cin)).astype(np.float32)
+        b = torch.from_numpy(
+            (0.1 * rng.standard_normal(cout)).astype(np.float32)).cuda()
+        x32 = torch.from_numpy(
+            rng.standard_normal((n, cin, h, w), dtype=np.float32)).cuda()
+        h_out, w_out = h // stride, w // stride
+        flops = 2 * n * h_out * w_out * cout * k * k * cin
+        big = n * cin * h * w >= 1 << 24
+        for dtype, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = x32.to(dtype)
+            size = x.element_size()
+            n_bytes = size * (x.numel() + n * cout * h_out * w_out
+                              + wk.size) + 4 * cout
+            peak = PEAK_F32_FLOPS if dtype == torch.float32 \
+                else PEAK_BF16_FLOPS
+            t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+            wl = torch.from_numpy(wk).cuda().to(dtype).permute(3, 2, 0, 1)
+            formats = {"contiguous": torch.contiguous_format,
+                       "channels_last": torch.channels_last}
+            lib = {}
+            with torch.inference_mode():
+                for fname, fmt in formats.items():
+                    xc, wc = x.contiguous(memory_format=fmt), \
+                        wl.contiguous(memory_format=fmt)
+                    lib[fname] = cuda_ms(
+                        lambda: torch.nn.functional.leaky_relu(
+                            torch.nn.functional.conv2d(
+                                xc, wc, b.to(dtype), stride, (k - 1) // 2),
+                            0.01), 10 if big else 50)
+                    del xc, wc
+            lib_fmt = min(lib, key=lib.get)
+            for v in variants:
+                if v == "A":
+                    name = "conv_chw"
+                    if stride == 2:
+                        xin = conv_chw.space_to_depth(x).contiguous()
+                        w2, taps, pad = conv_chw.prepare_weights_s2(wk)
+                    else:
+                        xin = x
+                        w2, taps, pad = conv_chw.prepare_weights_s1(wk)
+                    args = (xin, torch.from_numpy(w2).cuda().to(dtype), b,
+                            taps, pad, conv_chw.pad_origin(pad),
+                            "leaky_relu", dtype)
+                    kernel = lambda: conv_chw_kernel.conv_call(*args)
+                    plain = lambda: conv_chw_kernel.conv_call_plain(*args)
+                else:
+                    name, mod, wfn = {
+                        "C": ("conv_shift", conv_shift_kernel, lab.weights_c),
+                        "D": ("conv_tapdot", conv_tapdot_kernel,
+                              lab.weights_d)}[v]
+                    w2 = wfn(wk, dtype).cuda()
+                    kw = dict(act="leaky_relu", out_dtype=dtype)
+                    kernel = lambda: getattr(mod, name)(x, w2, b, **kw)
+                    plain = lambda: getattr(mod, name + "_plain")(
+                        x, w2, b, **kw)
+                out = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+                check(out.shape == ref.shape == (n, cout, h_out, w_out)
+                      and out.dtype == dtype, f"{name} {label} {tname}: "
+                      f"output {tuple(out.shape)} {out.dtype}")
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 1e-4 if dtype == torch.float32 else \
+                    2.0 ** -7 * ref.float().abs().max().item()
+                check(err <= tol, f"{name} {label} {tname}: max abs err "
+                                  f"{err} > {tol}")
+                del out, ref
+                ms = cuda_ms(kernel, 10 if big else 50)
+                plain_ms = cuda_ms(plain, 3, 1)
+                row = {
+                    "name": name, "label": label, "dtype": tname,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib[lib_fmt], "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                }
+                rows.append(row)
+                print(f"[kernel] {name} {label} {tname} x{(n, cin, h, w)} "
+                      f"{k}x{k} s{stride} -> {cout}ch: max_abs_err {err:.3g} "
+                      f"(tol {tol:.3g}), kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, conv2d {lib_fmt} "
+                      f"{lib[lib_fmt]:.4f} ms (contiguous "
+                      f"{lib['contiguous']:.4f}, channels_last "
+                      f"{lib['channels_last']:.4f}), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                      f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)",
+                      flush=True)
+            del x
+        del x32
+        torch.cuda.empty_cache()
+    return rows
+
+
+LAB_LEN, LAB_REPEAT = 4, 2
+
+
+def phase_lab(counters):
+    """This slice's path at full width: the port's two conv tools at
+    their default shapes and dtype (bf16), chains cut to LAB_LEN layers
+    and LAB_REPEAT timed repeats. Each tool checks or times what it
+    prints; here the launch counts are held to what the flags imply: a
+    chain runs once to warm up and LAB_REPEAT times on the clock, and
+    the lab checks one single layer per variant first."""
+    from vocal_remover_tpu_torch.scripts import bench_conv_kernel, conv_kernel_lab
+
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    flags = ["--len", str(LAB_LEN), "--repeat", str(LAB_REPEAT)]
+    said = io.StringIO()
+    try:  # the tools' own lines, each behind the phase's tag
+        with contextlib.redirect_stdout(said):
+            lab_rows = conv_kernel_lab.main(flags)
+            bench_rows = bench_conv_kernel.main(flags)
+    finally:
+        for line in said.getvalue().splitlines():
+            print(f"[lab] {line}", flush=True)
+    torch.cuda.synchronize()
+    launches = {k: wrapper.launches for k, wrapper in counters.items()}
+    chains = LAB_LEN * (1 + LAB_REPEAT)
+    want = {"conv_chw": len(LAB_SHAPES) * (1 + chains + chains),
+            "conv_shift": len(LAB_SHAPES) * (1 + chains),
+            "conv_tapdot": len(LAB_SHAPES) * (1 + chains)}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"lab path: {k} launched {n} times, want "
+                                   f"{want.get(k, 0)}")
+    check(len(lab_rows) == 3 * len(LAB_SHAPES)
+          and len(bench_rows) == 4 * len(LAB_SHAPES),
+          f"lab path: {len(lab_rows)} lab rows, {len(bench_rows)} bench rows")
+    for r in lab_rows + bench_rows:
+        check(np.isfinite(r["ms"]) and r["ms"] > 0, f"lab path: {r}")
+    print(f"[lab] conv_kernel_lab + bench_conv_kernel {' '.join(flags)} at "
+          f"their default shapes in bfloat16: launches {launches}", flush=True)
+    return launches
+
 
 def synth_song(seconds: float, seed: int) -> np.ndarray:
     """Stereo test song: a few tones, a vibrato voice-like partial series
@@ -503,15 +694,20 @@ def main():
     try:
         from vocal_remover_tpu_torch.nn import (
             config,
+            conv_chw_kernel,
+            conv_shift_kernel,
+            conv_tapdot_kernel,
             flat_conv_kernel,
             lstm_kernel,
         )
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e})")
 
-    # every kernel of the main paths (name = its csrc/ source): the
-    # wrapper module holding its `launches` count, and its launches per
-    # 4-patch chunk (5 band nets x 1 BiLSTM; 5 band nets x 4 packed convs)
+    # every kernel of the port (name = its csrc/ source): the wrapper
+    # module holding its `launches` count, and its launches per 4-patch
+    # chunk of the CLI's paths (5 band nets x 1 BiLSTM; 5 band nets x 4
+    # packed convs; none for the three channel-major conv kernels, which
+    # no model path reaches: the lab path drives them)
     kernels = [{
         "name": "lstm_recurrence",
         "route": "cuda",
@@ -526,6 +722,27 @@ def main():
         "replaces": "vocal_remover_tpu/nn/conv_pack.py:171",
         "wrapper": flat_conv_kernel,
         "per_chunk": 20,
+    }, {
+        "name": "conv_chw",
+        "route": "cuda",
+        "source": "vocal_remover_tpu_torch/csrc/conv_chw.cu",
+        "replaces": "vocal_remover_tpu/nn/conv_pallas.py:115",
+        "wrapper": conv_chw_kernel,
+        "per_chunk": 0,
+    }, {
+        "name": "conv_shift",
+        "route": "cuda",
+        "source": "vocal_remover_tpu_torch/csrc/conv_shift.cu",
+        "replaces": "scripts/conv_kernel_lab.py:70",
+        "wrapper": conv_shift_kernel,
+        "per_chunk": 0,
+    }, {
+        "name": "conv_tapdot",
+        "route": "cuda",
+        "source": "vocal_remover_tpu_torch/csrc/conv_tapdot.cu",
+        "replaces": "scripts/conv_kernel_lab.py:178",
+        "wrapper": conv_tapdot_kernel,
+        "per_chunk": 0,
     }]
     counters = {k["name"]: k["wrapper"] for k in kernels}
 
@@ -536,6 +753,7 @@ def main():
     rec_rows = phase_recurrence(gen)
     flat_rows = phase_flat_conv(args.seed)
     torch.cuda.empty_cache()
+    chw_rows = phase_chw_convs(args.seed)
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, results = phase_main_path(
@@ -544,11 +762,15 @@ def main():
         phase_reference(tmp, ckpt, args.seed)
         if args.profile:
             phase_profile(ckpt, args.seed)
+    lab_launches = phase_lab(counters)
 
-    # one record per kernel: its launches on the --flat_conv path (warm
-    # run), its largest error over the f32 cases, and its times at the
-    # flagship's largest launch (recurrence T = 128, 2N = 8, H = 64; flat
-    # conv stg3_full_band_net enc2_conv2 in f32)
+    # one record per kernel. The two kernels of the model: launches on the
+    # --flat_conv path (warm run), largest error over the f32 cases, times
+    # at the flagship's largest launch (recurrence T = 128, 2N = 8, H = 64;
+    # flat conv stg3_full_band_net enc2_conv2 in f32). The three
+    # channel-major conv kernels: launches on the lab path, error and
+    # times at the lab's first shape in its default dtype (bf16).
+    launches = dict(results["flat", "warm"]["launches"])
     shown = {
         "lstm_recurrence": (rec_rows[0], rec_rows),
         "flat_conv": (
@@ -556,10 +778,16 @@ def main():
                  if r["label"] == "stg3_full enc2_conv2" and r["dtype"] == "f32"),
             [r for r in flat_rows if r["dtype"] == "f32"]),
     }
+    for kname in ("conv_chw", "conv_shift", "conv_tapdot"):
+        mine = [r for r in chw_rows
+                if r["name"] == kname and r["dtype"] == "bf16"]
+        shown[kname] = (next(r for r in mine if r["label"] == "lab 32ch"),
+                        mine)
+        launches[kname] = lab_launches[kname]
     record = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
-        "launches": results["flat", "warm"]["launches"][k["name"]],
+        "launches": launches[k["name"]],
         "max_abs_err": max(r["max_abs_err"] for r in shown[k["name"]][1]),
         "ms": shown[k["name"]][0]["ms"],
         "plain_ms": shown[k["name"]][0]["plain_ms"],

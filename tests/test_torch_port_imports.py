@@ -48,11 +48,15 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("module,source", [
     ("nn/lstm_kernel.py", "csrc/lstm_recurrence.cu"),
     ("nn/flat_conv_kernel.py", "csrc/flat_conv.cu"),
+    ("nn/conv_chw_kernel.py", "csrc/conv_chw.cu"),
+    ("nn/conv_shift_kernel.py", "csrc/conv_shift.cu"),
+    ("nn/conv_tapdot_kernel.py", "csrc/conv_tapdot.cu"),
 ])
 def test_kernel_wrappers_have_no_fallback(module, source):
     """A wrapper launches its kernel or raises: no `try` around the
-    launch, no conv / compile call to fall back on, a `launches` count,
-    and its CUDA source beside it."""
+    launch, no conv / compile call to fall back on, no matrix product
+    outside its `*_plain` twin, a `launches` count, and its CUDA source
+    beside it."""
     pkg = os.path.join(ROOT, "vocal_remover_tpu_torch")
     assert os.path.exists(os.path.join(pkg, source))
     path = os.path.join(pkg, module)
@@ -62,6 +66,15 @@ def test_kernel_wrappers_have_no_fallback(module, source):
     called = {n.func.attr for n in ast.walk(tree)
               if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
     assert not called & {"conv2d", "compile", "conv_general_dilated"}
+    plain = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+             and n.name.endswith("_plain")]
+    assert plain, "no plain twin"
+    inside = {id(n) for f in plain for n in ast.walk(f)}
+    products = [n for n in ast.walk(tree) if id(n) not in inside and (
+        (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+         and n.func.attr in {"matmul", "einsum", "mm", "bmm"})
+        or (isinstance(n, ast.BinOp) and isinstance(n.op, ast.MatMult)))]
+    assert not products, f"matrix product outside the plain twin: {products}"
     assert any(isinstance(n, ast.Assign) and n.targets[0].id == "launches"
                for n in tree.body if isinstance(n, ast.Assign)
                and isinstance(n.targets[0], ast.Name))

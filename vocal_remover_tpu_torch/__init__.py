@@ -2,9 +2,9 @@
 
 Same modules, checkpoints (`.vrt.npz`) and outputs as the JAX package,
 in PyTorch's idiom (NCHW `nn.Module`s, explicit devices and generators).
-The BiLSTM recurrence runs as a hand-written CUDA kernel
-(csrc/lstm_recurrence.cu). Entry points run on `cuda` unless the caller
-asks for the CPU.
+What the JAX package runs as Pallas TPU kernels runs here as hand-written
+CUDA kernels (csrc/*.cu, built by build.py at first use). Entry points
+run on `cuda` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations

@@ -26,13 +26,14 @@ import ctypes
 import torch
 
 from vocal_remover_tpu_torch import build
+from vocal_remover_tpu_torch.nn.conv_chw_kernel import ACTS as _ACTS
+from vocal_remover_tpu_torch.nn.conv_chw_kernel import DTYPES as _DTYPES
+from vocal_remover_tpu_torch.nn.conv_chw_kernel import activate as _activate
 
 # kernel launches made by `flat_conv_core` in this process (plain-version
 # calls are not counted)
 launches = 0
 
-_ACTS = {None: 0, "none": 0, "identity": 0, "relu": 1, "leaky_relu": 2}
-_DTYPES = (torch.float32, torch.bfloat16)
 _S_LISTS = ((0,), (-1, 0, 1), (-1, 0))
 
 
@@ -88,14 +89,6 @@ def _check(xf, wst, bias, wb, h_out, rowtaps, s_list, act, out_dtype):
         raise ValueError(f"flat input has {mf} rows, expected stride * h_out"
                          f" * wb = {stride} * {h_out} * {wb}")
     return stride, roffs, stride * h_out, nl
-
-
-def _activate(y, act):
-    if _ACTS[act] == 1:
-        return torch.relu(y)
-    if _ACTS[act] == 2:
-        return torch.where(y >= 0, y, 0.01 * y)
-    return y
 
 
 def flat_conv_core_plain(xf, wst, bias, *, wb, h_out, rowtaps, s_list, act,
