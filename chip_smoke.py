@@ -11,7 +11,9 @@ Phases (each prints a line; any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main paths' shapes (max abs error against a stated
      tolerance, kernel / plain / library times from CUDA events,
-     roofline bound from the useful work): the BiLSTM recurrence, and
+     roofline bound from the useful work, and for the two kernels of the
+     model paths the share of the bound and the ratio to the library
+     time): the BiLSTM recurrence, and
      the flat conv at all four layers of stg3_full_band_net and of
      stg1_high_band_net in f32 and bf16, plus ragged cases; the three
      channel-major conv kernels (variant A = conv_chw, C = conv_shift,
@@ -27,6 +29,8 @@ Phases (each prints a line; any failure exits non-zero):
                    30 / 60; stems within 1 LSB of the plain path's;
        --flat_conv --precision bfloat16 (first, warm): same counts; SNR of
                    the stems against the `highest` stems held to a floor;
+       on both --flat_conv paths one more warm run under torch.profiler
+       gives the flat conv's kernel time summed over the song's launches;
      every run's stems are checked for shape, dtype and the residual
      invariant Instruments + Vocals == mixture (within 2 PCM16 LSB);
   5. reference: a 4 s song through the CLI on the card and on the CPU
@@ -39,7 +43,8 @@ Phases (each prints a line; any failure exits non-zero):
      to what the flags imply after;
   then the kernels' JSON line, and the device line last.
 --profile adds a torch.profiler breakdown of one warm separation on each
-of the three paths.
+of the three paths, with the flat conv's and the recurrence's share of
+the kernel time.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's package is not beside this script.
@@ -63,6 +68,7 @@ import torch
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -97,6 +103,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def share(row) -> str:
+    """A kernel row's share of its bound and its ratio to the library."""
+    return (f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
+            f"{row['ms'] / row['library_ms']:.2f}x the library time")
+
+
+def walked_share(blocks, wst_shape, ns, dtype) -> float:
+    """Share of the dense wst products that the flat conv's walk
+    multiplies: listed (tap, K slice, shift) blocks of its tiles over
+    all of them."""
+    from vocal_remover_tpu_torch.nn import flat_conv_kernel as fk
+
+    n_rt, l_in, nst = wst_shape
+    bk, bn = fk.TILES[dtype]
+    n_tiles = -(-(nst // ns) // bn)
+    codes = blocks[n_tiles + 1:].cpu().numpy().astype(np.int64)
+    live = sum(int(((codes >> 29) >> b & 1).sum()) for b in range(3))
+    return live / (n_rt * -(-l_in // bk) * ns * n_tiles)
 
 
 def phase_card():
@@ -144,13 +170,15 @@ def phase_recurrence(gen):
                          generator=gen)
         w_hh = torch.randn(2, hidden, 4 * hidden, device="cuda",
                            generator=gen) / hidden ** 0.5
-        out = lstm_kernel.recurrence(xg, w_hh)
+        # the model path hands the kernel its weight layout (nn/lstm.py)
+        w_cols = lstm_kernel.relayout(w_hh)
+        out = lstm_kernel.recurrence_cols(xg, w_cols)
         torch.cuda.synchronize()
         ref = lstm_kernel.recurrence_plain(xg, w_hh)
         err = (out - ref).abs().max().item()
         check(err <= 2e-5, f"recurrence {t_len}x{two_n}x{hidden}: max abs "
                            f"err {err} > 2e-5")
-        ms = cuda_ms(lambda: lstm_kernel.recurrence(xg, w_hh), 200)
+        ms = cuda_ms(lambda: lstm_kernel.recurrence_cols(xg, w_cols), 200)
         plain_ms = cuda_ms(lambda: lstm_kernel.recurrence_plain(xg, w_hh), 5)
         # yardstick only (never called by the port): cuDNN's BiLSTM at
         # the same (T, N, H), which also runs its own input projection
@@ -170,10 +198,11 @@ def phase_recurrence(gen):
         }
         rows.append(row)
         print(f"[kernel] lstm_recurrence T={t_len} 2N={two_n} H={hidden}: "
-              f"max_abs_err {err:.3g} (tol 2e-5), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.nn.LSTM bidirectional {library_ms:.4f}"
-              f" ms (incl. its input GEMM), bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']})", flush=True)
+              f"max_abs_err {err:.3g} (tol 2e-5), kernel {ms:.4f} ms "
+              f"({1e3 * ms / t_len:.3f} us a step), plain {plain_ms:.4f} ms, "
+              f"torch.nn.LSTM bidirectional {library_ms:.4f} ms (incl. its "
+              f"input GEMM), bound {row['bound_ms']:.6f} ms ({row['bound_by']}"
+              f"); {share(row)}", flush=True)
     return rows
 
 
@@ -211,8 +240,9 @@ def phase_flat_conv(seed):
     step there: kernel and plain version round the same f32 sum, which
     they reach in another order).
     Bound: the conv's USEFUL work, whatever computes it: FLOPs = 2 N
-    H_out W_out Cout k k Cin over the f32 FFMA peak (f32 in and out) or
-    the bf16 tensor-core peak (bf16), bytes = input + output + the HWIO
+    H_out W_out Cout k k Cin over the bf16 tensor-core peak (bf16), or
+    three times that over the TF32 peak (f32, which the kernel multiplies
+    as three TF32 products, 3xTF32), bytes = input + output + the HWIO
     weights + the bias once. Library yardstick (never called by the
     port): one torch.nn.functional.conv2d with bias on the same tensor in
     channels_last, plus the activation."""
@@ -238,7 +268,9 @@ def phase_flat_conv(seed):
                 bias=torch.from_numpy(layer["bias"]).cuda(),
                 wb=w_out // p_out, h_out=h_out, rowtaps=layer["rowtaps"],
                 s_list=layer["s_list"], act="leaky_relu", out_dtype=dtype)
-            out = fk.flat_conv_core(**args)
+            # the walk, built once per packed layer as the model path does
+            blocks = fk.block_table(args["wst"], layer["s_list"])
+            out = fk.flat_conv_core(**args, blocks=blocks)
             torch.cuda.synchronize()
             ref = fk.flat_conv_core_plain(**args)
             check(out.shape == ref.shape and out.dtype == dtype,
@@ -249,7 +281,7 @@ def phase_flat_conv(seed):
                 2.0 ** -7 * ref.float().abs().max().item()
             check(err <= tol, f"flat_conv {label} {name}: max abs err {err} "
                               f"> {tol}")
-            ms = cuda_ms(lambda: fk.flat_conv_core(**args), 20)
+            ms = cuda_ms(lambda: fk.flat_conv_core(**args, blocks=blocks), 20)
             plain_ms = cuda_ms(lambda: fk.flat_conv_core_plain(**args), 3, 1)
             xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
             wc = torch.from_numpy(wk).cuda().to(dtype).permute(
@@ -262,10 +294,12 @@ def phase_flat_conv(seed):
                             xc, wc, bc, stride, (k - 1) // 2), 0.01), 10)
             size = 4 if dtype == torch.float32 else 2
             n_bytes = size * (x.numel() + out.numel() + wk.size) + 4 * b.size
-            peak = PEAK_F32_FLOPS if dtype == torch.float32 \
-                else PEAK_BF16_FLOPS
-            t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+            t_ops = (3 * flops / PEAK_TF32_FLOPS if dtype == torch.float32
+                     else flops / PEAK_BF16_FLOPS) * 1e3
+            t_bytes = n_bytes / PEAK_BYTES * 1e3
             dense = 2 * n * h_out * (w_out // p_out) * layer["wst"].size
+            walked = dense * walked_share(blocks, layer["wst"].shape,
+                                          len(layer["s_list"]), dtype)
             row = {
                 "label": label, "dtype": name, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
@@ -278,9 +312,10 @@ def phase_flat_conv(seed):
                   f"{tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"conv2d channels_last {library_ms:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}; useful "
-                  f"{flops / 1e9:.3f} GFLOP, dense wst {dense / 1e9:.3f} "
-                  f"GFLOP, {n_bytes / 1e6:.2f} MB)", flush=True)
-            del args, out, ref, x, xc
+                  f"{flops / 1e9:.3f} GFLOP, walked {walked / 1e9:.3f} "
+                  f"GFLOP of dense wst {dense / 1e9:.3f}, {n_bytes / 1e6:.2f}"
+                  f" MB); {share(row)}", flush=True)
+            del args, out, ref, x, xc, blocks
         del x32
     return rows
 
@@ -479,6 +514,19 @@ def synth_song(seconds: float, seed: int) -> np.ndarray:
     return np.stack([left, right]).astype(np.float32)
 
 
+def device_kernels(prof):
+    """The device kernels of a torch.profiler run (CPU ops and the
+    profiler's own buffer activities also carry device time)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in ("Buffer Flush", "Activity Buffer Request")]
+
+
+# a kernel's device symbol carries its entry function's name
+KERNEL_SYMBOLS = {"flat_conv": "flat_conv_mma",
+                  "lstm_recurrence": "lstm_recurrence_kernel"}
+
+
 def run_cli(argv, counters):
     """One CLI run with every kernel wrapper's `launches` count reset just
     before and read just after; -> (wall seconds, {kernel: launches})."""
@@ -603,6 +651,25 @@ def phase_main_path(tmp, seed, counters, per_chunk):
                 line += (f"; SNR vs highest: Instruments {snr[0]:.2f} dB, "
                          f"Vocals {snr[1]:.2f} dB (floor {BF16_SNR_FLOOR_DB})")
             print(line, flush=True)
+        if "flat_conv" in spec["kernels"]:
+            # the flat conv's own kernel time over a whole song: one more
+            # warm run under the profiler, every launch summed
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, launches = run_cli(argv, counters)
+            mine = [e for e in device_kernels(prof)
+                    if KERNEL_SYMBOLS["flat_conv"] in e.name]
+            ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+            expect = per_chunk["flat_conv"] * want[False]
+            check(len(mine) == launches["flat_conv"] == expect,
+                  f"{path} profiled: {len(mine)} flat_conv kernels traced, "
+                  f"{launches['flat_conv']} counted, want {expect}")
+            results[path, "flat_conv_song_ms"] = ms
+            print(f"[main] {path}: flat_conv kernel time over the song's "
+                  f"{len(mine)} launches {ms:.3f} ms ({ms / len(mine):.4f} "
+                  "ms a launch; torch.profiler, one more warm run)",
+                  flush=True)
     return ckpt, results
 
 
@@ -656,11 +723,7 @@ def phase_profile(ckpt, seed):
             sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        # device kernels only (CPU ops and the profiler's own buffer
-        # activities also carry device time in key_averages)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name not in ("Buffer Flush", "Activity Buffer Request")]
+        kernels = device_kernels(prof)
         busy, last = 0.0, float("-inf")
         for s, e in sorted((k.time_range.start, k.time_range.end)
                            for k in kernels):
@@ -676,6 +739,11 @@ def phase_profile(ckpt, seed):
               f"{len(kernels)} kernel launches, kernel time "
               f"{total / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms = "
               f"{100 * busy / 1e6 / wall:.1f}% of wall", flush=True)
+        for k, sym in KERNEL_SYMBOLS.items():
+            t = sum(v[0] for name, v in by_name.items() if sym in name)
+            n = sum(v[1] for name, v in by_name.items() if sym in name)
+            print(f"[profile] {path}: {k} {t / 1e3:.2f} ms in {n} launches"
+                  f" = {100 * t / total:.1f}% of kernel time", flush=True)
         for kname, (t, n) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:12]:
             print(f"[profile]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",

@@ -248,3 +248,221 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, c, cout, h, w,
     ref = flat_conv_kernel.flat_conv_core_plain(**args)
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+# every flat geometry that pack_flat_encoders makes (enc2 / enc3 of a
+# band net with pack p1 = 4, 8, 16: stride 2 at p_out = p1/2 and p1/4,
+# stride 1 at the same packs), P = 16 at stride 1 (the NHWC wrapper at 8
+# channels), the 1x1, and ragged L / NL
+GEOMETRIES = [  # (k, stride, cin, cout, p_out)
+    (3, 2, 32, 64, 2), (3, 1, 64, 64, 2), (3, 2, 64, 128, 1),
+    (3, 1, 128, 128, 1), (3, 2, 16, 32, 4), (3, 1, 32, 32, 4),
+    (3, 2, 8, 16, 8), (3, 1, 16, 16, 8), (3, 1, 8, 8, 16),
+    (1, 1, 32, 48, 4), (3, 2, 20, 40, 3), (3, 1, 12, 20, 5), (1, 1, 7, 9, 3),
+]
+
+
+def _decode(blocks, wst, ns, dtype):
+    """-> (offsets, step codes, lane tiles) of a block_table made at the
+    tile of `dtype`."""
+    nl = wst.shape[2] // ns
+    n_tiles = -(-nl // flat_conv_kernel.TILES[dtype][1])
+    b = blocks.numpy().astype(np.int64)
+    off, codes = b[:n_tiles + 1], b[n_tiles + 1:]
+    assert off[0] == 0 and off[-1] == codes.size and np.all(np.diff(off) >= 0)
+    return off, codes, n_tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,cin,cout,p_out", GEOMETRIES)
+def test_block_table_covers_wst_exactly(k, stride, cin, cout, p_out, dtype):
+    """Every non-zero of wst lies in a listed (tap, K slice, shift, lane
+    tile) block, and no listed block is all zero, at each dtype's tile."""
+    _, wk, b = _inputs(cin, cout, 1, 1, k, seed=cin * cout)
+    layer = tcp.build_flat_layer(wk, b, p_out, stride)
+    wst = torch.from_numpy(layer["wst"]).to(dtype)
+    s_list = layer["s_list"]
+    bk, bn = flat_conv_kernel.TILES[dtype]
+    blocks = flat_conv_kernel.block_table(wst, s_list)
+    assert blocks.dtype == torch.int32 and blocks.dim() == 1
+    off, codes, n_tiles = _decode(blocks, wst, len(s_list), dtype)
+    n_rt, l_in, nst = wst.shape
+    nl = nst // len(s_list)
+    w4 = wst.float().numpy().reshape(n_rt, l_in, len(s_list), nl)
+    listed = np.zeros(w4.shape, bool)
+    for j in range(n_tiles):
+        seen = set()
+        for code in codes[off[j]:off[j + 1]]:
+            t, ks, shifts = code & 3, (code >> 2) & (2 ** 27 - 1), code >> 29 & 7
+            assert (t, ks) not in seen and shifts
+            seen.add((t, ks))
+            for js, s in enumerate(s_list):
+                if shifts >> (s + 1) & 1:
+                    blk = w4[t, ks * bk:(ks + 1) * bk, js, j * bn:(j + 1) * bn]
+                    assert blk.size and np.any(blk != 0), (t, ks, s, j)
+                    listed[t, ks * bk:(ks + 1) * bk, js, j * bn:(j + 1) * bn] = True
+            assert not shifts & ~sum(1 << (s + 1) for s in s_list)
+    assert not np.any((w4 != 0) & ~listed)
+
+
+def _walk_plain(xf, wst, bias, blocks, dtype, *, wb, h_out, rowtaps, s_list,
+                act):
+    """The kernel's walk in plain PyTorch: only the listed slices are
+    multiplied, each shift's A rows masked by m % wb (the kernel's order
+    of work, not its order of the f32 sum)."""
+    stride, roffs, h_in, nl = flat_conv_kernel._check(
+        xf, wst, bias, wb, h_out, rowtaps, s_list, act, xf.dtype)
+    n, _, l_in = xf.shape
+    bk, bn = flat_conv_kernel.TILES[dtype]
+    m = h_out * wb
+    x = xf.reshape(n, h_in, wb, l_in)
+    g = torch.arange(m) % wb
+    off, codes, n_tiles = _decode(blocks, wst, len(s_list), dtype)
+    out = torch.zeros(n, m, nl) + bias
+    for j in range(n_tiles):
+        cols = slice(j * bn, min((j + 1) * bn, nl))
+        for code in codes[off[j]:off[j + 1]]:
+            t, ks = code & 3, (code >> 2) & (2 ** 27 - 1)
+            kk = slice(ks * bk, min((ks + 1) * bk, l_in))
+            for s in range(-1, 2):
+                if not code >> 29 >> (s + 1) & 1:
+                    continue
+                js = s_list.index(s)
+                mm = torch.arange(m) + s  # output row m reads row m + s
+                a_row, gpos = mm.div(wb, rounding_mode="floor"), mm % wb
+                row = stride * a_row + roffs[t]
+                keep = (mm >= 0) & (mm < m) & (row >= 0) & (row < h_in)
+                keep &= ~((s == -1) & (g == 0)) & ~((s == 1) & (g == wb - 1))
+                a = x[:, row.clamp(0, h_in - 1), gpos.clamp(0, wb - 1), kk]
+                a = a * keep.reshape(1, m, 1)
+                wblk = wst[t, kk, js * nl:(js + 1) * nl][:, cols]
+                out[:, :, cols] += a @ wblk
+    return flat_conv_kernel._activate(out, act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,cin,cout,p_out", GEOMETRIES)
+def test_walk_over_listed_slices_equals_plain(k, stride, cin, cout, p_out,
+                                              dtype):
+    """Integer-valued operands make every f32 sum exact, so the walk over
+    only the listed slices (at the tile of each dtype) must equal the
+    dense plain product bit for bit."""
+    rng = np.random.default_rng(cin + cout + p_out)
+    wk = rng.integers(-3, 4, (k, k, cin, cout)).astype(np.float32)
+    b = rng.integers(-4, 5, cout).astype(np.float32)
+    layer = tcp.build_flat_layer(wk, b, p_out, stride)
+    h, wb = 6, 3
+    x = rng.integers(-3, 4, (2, h, wb * layer["p_in"], cin)).astype(
+        np.float32)
+    xf = tcp.to_flat(torch.from_numpy(x), layer["p_in"])
+    wst = torch.from_numpy(layer["wst"])
+    geo = dict(wb=wb, h_out=h // stride, rowtaps=layer["rowtaps"],
+               s_list=layer["s_list"], act=None)
+    bias = torch.from_numpy(layer["bias"])
+    want = flat_conv_kernel.flat_conv_core_plain(
+        xf, wst, bias, out_dtype=torch.float32, **geo)
+    got = _walk_plain(xf, wst, bias, flat_conv_kernel.block_table(
+        wst.to(dtype), layer["s_list"]), dtype, **geo)
+    assert torch.equal(got, want)
+
+
+def test_packed_layers_carry_their_walk():
+    """pack_flat_encoders builds each layer's walk once, beside wst; it
+    follows the module to a device and is not saved with the weights."""
+    from vocal_remover_tpu_torch.models import serving
+    from vocal_remover_tpu_torch.models.base_net import FLAT_LAYERS, BaseNet
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+
+    model = CascadedNet(256, 128, 8, 16,
+                        generator=torch.Generator().manual_seed(0))
+    packed = serving.serving_variables(model, "bfloat16", flat=True)
+    nets = [m for m in packed.modules()
+            if isinstance(m, BaseNet) and m.flat_enc is not None]
+    assert nets
+    for net in nets:
+        for name, _, stride in FLAT_LAYERS:
+            lay = net.flat_enc[name]
+            s_list = tcp.flat_geometry(3, stride)[1]
+            assert lay.s_list == s_list and lay.wst.dtype == torch.bfloat16
+            assert lay.blocks.dtype == torch.int32
+            assert torch.equal(lay.blocks,
+                               flat_conv_kernel.block_table(lay.wst, s_list))
+    assert not any(k.endswith(".blocks") for k in packed.state_dict())
+
+
+# the flat conv's launches on the --flat_conv path at the flagship (crop
+# 256, batch 4): the four layers of stg3_full_band_net (F = 1024, c1 = 32,
+# p1 = 4) and of stg1_high_band_net (F = 512, c1 = 8, p1 = 16)
+FLAGSHIP = [(f"{net} {name}", 4, h, w, cin, cout, stride, p_out)
+            for net, bins, c1, p1 in (("stg3_full", 1024, 32, 4),
+                                      ("stg1_high", 512, 8, 16))
+            for name, h, w, cin, cout, stride, p_out in (
+                ("enc2_conv1", bins, 256, c1, 2 * c1, 2, p1 // 2),
+                ("enc2_conv2", bins // 2, 128, 2 * c1, 2 * c1, 1, p1 // 2),
+                ("enc3_conv1", bins // 2, 128, 2 * c1, 4 * c1, 2, p1 // 4),
+                ("enc3_conv2", bins // 4, 64, 4 * c1, 4 * c1, 1, p1 // 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,n,h,w,cin,cout,stride,p_out", FLAGSHIP)
+def test_kernel_matches_plain_at_flagship_shapes(cuda_device, dtype, label, n,
+                                                 h, w, cin, cout, stride,
+                                                 p_out):
+    """The kernel walking its table against the dense plain version at
+    the main path's launch shapes: f32 within 1e-4, bf16 within one bf16
+    step (2^-7) of the largest output."""
+    rng = np.random.default_rng(len(label))
+    wk = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(
+        np.float32)
+    b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    layer = tcp.build_flat_layer(wk, b, p_out, stride)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin),
+                                             dtype=np.float32))
+    args = dict(
+        xf=tcp.to_flat(x.to(cuda_device, dtype), layer["p_in"]),
+        wst=torch.from_numpy(layer["wst"]).to(cuda_device, dtype),
+        bias=torch.from_numpy(layer["bias"]).to(cuda_device),
+        wb=(w // stride) // p_out, h_out=h // stride,
+        rowtaps=layer["rowtaps"], s_list=layer["s_list"], act="leaky_relu",
+        out_dtype=dtype)
+    blocks = flat_conv_kernel.block_table(args["wst"], layer["s_list"])
+    out = flat_conv_kernel.flat_conv_core(**args, blocks=blocks)
+    torch.cuda.synchronize()
+    ref = flat_conv_kernel.flat_conv_core_plain(**args)
+    tol = 1e-4 if dtype == torch.float32 else \
+        2.0 ** -7 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_core_rejects_a_foreign_walk_on_card(cuda_device):
+    args = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+            for k, v in _core_args().items()}
+    with pytest.raises(ValueError, match="block_table"):
+        flat_conv_kernel.flat_conv_core(
+            **args, blocks=torch.zeros(4, dtype=torch.int64,
+                                       device=cuda_device))
+
+
+def test_apply_drops_a_walk_made_for_another_dtype(monkeypatch):
+    """A layer whose wst is cast to the input's dtype on the way in
+    cannot use a walk made at its own dtype's tile: the kernel's wrapper
+    gets none and builds its own."""
+    seen = []
+
+    def core(*args, blocks=None, **kw):
+        seen.append(blocks)
+        return flat_conv_kernel.flat_conv_core_plain(*args, **kw)
+
+    monkeypatch.setattr(flat_conv_kernel, "flat_conv_core", core)
+    _, wk, b = _inputs(32, 64, 1, 1, 3, seed=0)
+    layer = tcp.build_flat_layer(wk, b, 2, 1)
+    wst = torch.from_numpy(layer["wst"])
+    layer["wst"], layer["blocks"] = wst, flat_conv_kernel.block_table(
+        wst, layer["s_list"])
+    for dtype in (torch.float32, torch.bfloat16):
+        xf = torch.zeros(1, 4 * 8, layer["wst"].shape[1], dtype=dtype)
+        tcp.flat_layer_apply(layer, xf, 4, 8)
+    assert seen[0] is not None and torch.equal(seen[0], layer["blocks"])
+    assert seen[1] is None

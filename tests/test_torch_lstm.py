@@ -87,9 +87,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_len,two_n,hidden", [
-    (128, 8, 64), (128, 8, 32), (37, 10, 32),
+    (128, 8, 64), (128, 8, 32), (37, 10, 32), (37, 6, 100), (5, 2, 1),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, t_len, two_n, hidden):
+    """The flagship launches (H = 64, 32), the ragged case, a hidden size
+    past the register-resident weights (H = 100), and H = 1."""
     xg, w_hh = _inputs(t_len, two_n, hidden, seed=3)
     xg_d = torch.from_numpy(xg).to(cuda_device)
     w_d = torch.from_numpy(w_hh).to(cuda_device)
@@ -100,3 +102,37 @@ def test_kernel_matches_plain_on_card(cuda_device, t_len, two_n, hidden):
     ref = lstm_kernel.recurrence_plain(xg_d, w_d)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-5)
+
+
+def test_relayout_round_trip():
+    """The kernel's weight layout is a transpose: undone, it gives back
+    w_hh exactly, and it is torch's weight_hh_l0 stacked."""
+    _, w_hh = _inputs(3, 4, 24, seed=1)
+    w = torch.from_numpy(w_hh)
+    w_cols = lstm_kernel.relayout(w)
+    assert w_cols.shape == (2, 96, 24) and w_cols.is_contiguous()
+    assert torch.equal(lstm_kernel.undo_relayout(w_cols), w)
+    assert torch.equal(w_cols[1], w[1].t())
+
+
+@pytest.mark.parametrize("t_len,two_n,hidden", [(16, 8, 16), (37, 10, 32)])
+def test_recurrence_cols_plain_matches_pallas(t_len, two_n, hidden):
+    """The plain recurrence through the re-laid weights matches
+    `recurrence_plain` exactly and the JAX kernel in interpret mode."""
+    xg, w_hh = _inputs(t_len, two_n, hidden, seed=t_len + 1)
+    ref = np.asarray(_run_recurrence(xg, w_hh, interpret=True))
+    w = torch.from_numpy(w_hh)
+    before = lstm_kernel.launches
+    out = lstm_kernel.recurrence_cols(torch.from_numpy(xg),
+                                      lstm_kernel.relayout(w))
+    assert lstm_kernel.launches == before
+    assert torch.equal(out, lstm_kernel.recurrence_plain(
+        torch.from_numpy(xg), w))
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+def test_recurrence_cols_rejects_the_other_layout():
+    xg, w_hh = _inputs(4, 2, 8, seed=0)
+    with pytest.raises(ValueError, match="w_cols"):
+        lstm_kernel.recurrence_cols(torch.from_numpy(xg),
+                                    torch.from_numpy(w_hh))

@@ -2,11 +2,13 @@
 //
 // Replaces the Pallas TPU kernel vocal_remover_tpu/nn/lstm_pallas.py
 // (`_run_recurrence`, body `_make_cell_kernel`). Contract, unchanged:
-//   xg   (T, 2N, 4H) f32  input projections + both biases; rows [0, N) are
-//                         the forward direction, rows [N, 2N) the backward
-//                         direction already reversed in time
-//   w_hh (2, H, 4H)  f32  recurrent weights, w_hh[0] forward, w_hh[1] backward
-//   hs   (T, 2N, H)  f32  hidden state of every step; state starts at zero
+//   xg     (T, 2N, 4H) f32  input projections + both biases; rows [0, N) are
+//                           the forward direction, rows [N, 2N) the backward
+//                           direction already reversed in time
+//   w_cols (2, 4H, H)  f32  recurrent weights, one row per gate column:
+//                           w_cols[d] = w_hh[d]^T (nn/lstm_kernel.py
+//                           `relayout`; torch's own weight_hh layout)
+//   hs     (T, 2N, H)  f32  hidden state of every step; state starts at zero
 // Each step: gates = xg[t] + h @ w_hh[dir] (gate order i, f, g, o);
 // c = sigmoid(f) c + sigmoid(i) tanh(g); h = sigmoid(o) tanh(c).
 //
@@ -16,109 +18,151 @@
 // (H100 SXM at 700 W): the roofline bound is under a microsecond, and the
 // real limit is the latency of one step times T.
 //
-// Design: the TPU kernel's sequential grid over time blocks becomes a loop
-// over t inside one block. Blocks split the rows by direction (grid.y) and
-// by groups of kRows rows (grid.x); rows are independent, so blocks never
-// talk to each other. w_hh[dir] is copied once into shared memory (64 KiB
-// at H = 64, so it is dynamic shared memory above the 48 KB default). h, c
-// and the step's gates stay in shared memory. One thread per gate column
-// does the dot over H for all of the block's rows; after a barrier the
-// threads update c and h per (row, unit). expf/tanhf (no fast math) keep
-// the result within 2e-5 of the plain PyTorch version over 128 steps.
-// Faster forms (mma.sync, the state in registers, a persistent cluster)
-// are later work.
+// Design: every row is independent, so one block runs one row (grid 2N,
+// direction = row / N) and the step's critical path is as short as one
+// block can make it.
+//  * One thread per gate column j = q*H + u (KS = 2 threads splitting the
+//    dot over H when H > 64): for H <= 64 its column of w_hh lives in
+//    registers for the whole run, read once from its contiguous row of
+//    w_cols (beyond that 4H x H weights exceed the register file, and the
+//    thread reads them from L1 every step).
+//  * The four gates of a hidden unit sit in neighbouring lanes of one warp:
+//    each lane applies its own gate's nonlinearity, and __shfl_sync hands
+//    i, f, g, o to every lane of the group, which all update c in
+//    registers (the same value in each); one lane writes h.
+//  * h is double-buffered in shared memory (read buffer t & 1, write the
+//    other): one __syncthreads() a step. The dot reads h as broadcast
+//    float4s into four independent FMA chains.
+//  * xg is prefetched kPrefetch steps ahead into a register ring, so its
+//    device-memory latency is off the critical path.
+//  * Numerics: f32 with precise expf, division and tanhf; tanh(g) is
+//    computed as 2 sigmoid(2g) - 1 so that the four lanes of a unit run the
+//    same instructions (abs error a few 1e-7, well inside the 2e-5
+//    tolerance over 128 steps).
+// Left for later: a persistent kernel that runs all five band nets'
+// recurrences in one launch, and mma.sync for H >= 128.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 4;  // rows of one direction handled by one block
+constexpr int kPrefetch = 4;  // steps of xg in flight ahead of the step
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void lstm_recurrence_kernel(const float* __restrict__ xg,
-                                       const float* __restrict__ w_hh,
-                                       float* __restrict__ hs, int t_len,
-                                       int n, int hidden) {
-  extern __shared__ float smem[];
+// KS: threads per gate column, each with WPT = H_pad / KS weights, held in
+// registers (kRegW, H <= 64) or read from L1 every step (64 < H <= 128:
+// 4H x H weights would take the whole register file).
+template <int KS, int WPT, bool kRegW>
+__global__ void __launch_bounds__(4 * KS * KS * WPT)
+lstm_recurrence_kernel(const float* __restrict__ xg,
+                       const float* __restrict__ w_cols,
+                       float* __restrict__ hs, int t_len, int n, int hidden) {
+  constexpr int kHPad = KS * WPT;
+  __shared__ __align__(16) float h_buf[2][kHPad];
+
+  const int row = blockIdx.x;  // in [0, 2N)
+  const int dir = row / n;
+  const int tid = threadIdx.x;
+  const int p = tid % KS;            // which part of the dot over H
+  const int q = (tid / KS) % 4;      // gate: i, f, g, o
+  const int u = tid / (4 * KS);      // hidden unit
+  const bool live = u < hidden;
+  const int col = q * hidden + u;
   const int g4 = 4 * hidden;
-  float* w = smem;                    // (H, 4H)
-  float* h = w + hidden * g4;         // (kRows, H)
-  float* c = h + kRows * hidden;      // (kRows, H)
-  float* gates = c + kRows * hidden;  // (kRows, 4H)
+  const int lane = tid % 32;
+  const int base = lane - lane % (4 * KS);  // lane of (u, gate i, part 0)
 
-  const int dir = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - r0);
-  const int j = threadIdx.x;  // gate column
-  const size_t row_base = (size_t)dir * n + r0;
-  const size_t two_n = 2 * (size_t)n;
-
-  const float* wd = w_hh + (size_t)dir * hidden * g4;
-  for (int i = j; i < hidden * g4; i += blockDim.x) w[i] = wd[i];
-  for (int i = j; i < kRows * hidden; i += blockDim.x) {
-    h[i] = 0.0f;
-    c[i] = 0.0f;
+  // this thread's weights: w_hh[dir][k][col] for k = p*WPT .. p*WPT+WPT-1
+  const float* wc = w_cols + ((size_t)dir * g4 + (live ? col : 0)) * hidden;
+  float w[kRegW ? WPT : 1];
+  auto weight = [&](int i) {
+    const int k = p * WPT + i;
+    return live && k < hidden ? __ldg(wc + k) : 0.0f;
+  };
+  if (kRegW) {
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) w[i] = weight(i);
   }
+  for (int i = tid; i < 2 * kHPad; i += blockDim.x) (&h_buf[0][0])[i] = 0.0f;
+
+  const size_t xstride = (size_t)2 * n * g4;  // one time step of xg
+  const float* xr = xg + (size_t)row * g4 + col;
+  float xq[kPrefetch];
+#pragma unroll
+  for (int s = 0; s < kPrefetch; ++s) xq[s] = live && s < t_len ? xr[s * xstride] : 0.0f;
+  float* hr = hs + (size_t)row * hidden + u;
+  const size_t hstride = (size_t)2 * n * hidden;
+  // sigmoid(k x): k = 2 for the cell gate, whose tanh is 2 sigmoid(2x) - 1
+  const float scale = q == 2 ? 2.0f : 1.0f;
+  float c = 0.0f;
   __syncthreads();
 
-  for (int t = 0; t < t_len; ++t) {
-    const float* xt = xg + ((size_t)t * two_n + row_base) * g4;
-    float acc[kRows];
+  for (int t0 = 0; t0 < t_len; t0 += kPrefetch) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = r < rows ? xt[(size_t)r * g4 + j] : 0.0f;
-    // rows >= `rows` hold h == 0 for the whole run, so their sums are unused
-    for (int k = 0; k < hidden; ++k) {
-      const float wk = w[k * g4 + j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h[r * hidden + k], wk, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) gates[r * g4 + j] = acc[r];
-    __syncthreads();
+    for (int s = 0; s < kPrefetch; ++s) {
+      const int t = t0 + s;
+      if (t >= t_len) break;
+      const float x_t = xq[s];
+      if (live && t + kPrefetch < t_len) xq[s] = xr[(t + kPrefetch) * xstride];
 
-    float* ht = hs + ((size_t)t * two_n + row_base) * hidden;
-    for (int i = j; i < rows * hidden; i += blockDim.x) {
-      const int r = i / hidden;
-      const int u = i - r * hidden;
-      const float* g = gates + r * g4;
-      const float ig = sigmoid(g[u]);
-      const float fg = sigmoid(g[hidden + u]);
-      const float gg = tanhf(g[2 * hidden + u]);
-      const float og = sigmoid(g[3 * hidden + u]);
-      const float cn = fg * c[i] + ig * gg;
-      const float hn = og * tanhf(cn);
-      c[i] = cn;
-      h[i] = hn;
-      ht[i] = hn;  // row r of this block is contiguous at ht + r * H
+      const float* h = h_buf[t & 1] + p * WPT;
+      float acc[4] = {p == 0 ? x_t : 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < WPT; i += 4) {
+        const float4 h4 = *reinterpret_cast<const float4*>(h + i);
+        acc[0] = fmaf(h4.x, kRegW ? w[i] : weight(i), acc[0]);
+        acc[1] = fmaf(h4.y, kRegW ? w[i + 1] : weight(i + 1), acc[1]);
+        acc[2] = fmaf(h4.z, kRegW ? w[i + 2] : weight(i + 2), acc[2]);
+        acc[3] = fmaf(h4.w, kRegW ? w[i + 3] : weight(i + 3), acc[3]);
+      }
+      float gate = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+#pragma unroll
+      for (int o = 1; o < KS; o *= 2) gate += __shfl_xor_sync(0xffffffffu, gate, o);
+
+      float a = sigmoid(scale * gate);
+      if (q == 2) a = 2.0f * a - 1.0f;
+      const float ig = __shfl_sync(0xffffffffu, a, base);
+      const float fg = __shfl_sync(0xffffffffu, a, base + KS);
+      const float gg = __shfl_sync(0xffffffffu, a, base + 2 * KS);
+      const float og = __shfl_sync(0xffffffffu, a, base + 3 * KS);
+      c = fg * c + ig * gg;
+      const float hn = og * tanhf(c);
+      if (live && q == 0 && p == 0) {
+        h_buf[(t + 1) & 1][u] = hn;
+        hr[t * hstride] = hn;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
+}
+
+template <int KS, int WPT, bool kRegW>
+cudaError_t launch(const float* xg, const float* w_cols, float* hs, int t_len,
+                   int n, int hidden, cudaStream_t stream) {
+  const int threads = (4 * KS * hidden + 31) / 32 * 32;
+  lstm_recurrence_kernel<KS, WPT, kRegW><<<2 * n, threads, 0, stream>>>(
+      xg, w_cols, hs, t_len, n, hidden);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" size_t lstm_recurrence_smem_bytes(int hidden) {
-  return sizeof(float) *
-         ((size_t)hidden * 4 * hidden + 2 * kRows * hidden + kRows * 4 * hidden);
-}
+// Largest hidden size the kernel takes (4H x KS threads a block).
+extern "C" int lstm_recurrence_max_hidden() { return 128; }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 when
 // the launch was accepted). Does not synchronise.
-extern "C" int lstm_recurrence(const float* xg, const float* w_hh, float* hs,
+extern "C" int lstm_recurrence(const float* xg, const float* w_cols, float* hs,
                                int t_len, int n, int hidden, void* stream) {
-  if (t_len <= 0 || n <= 0 || hidden <= 0 || 4 * hidden > 1024) {
+  if (t_len <= 0 || n <= 0 || hidden <= 0 ||
+      hidden > lstm_recurrence_max_hidden() || 2 * (long long)n > 0x7fffffff) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = lstm_recurrence_smem_bytes(hidden);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kRows - 1) / kRows, 2);
-  lstm_recurrence_kernel<<<grid, 4 * hidden, smem, (cudaStream_t)stream>>>(
-      xg, w_hh, hs, t_len, n, hidden);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hidden <= 32) return (int)launch<1, 32, true>(xg, w_cols, hs, t_len, n, hidden, st);
+  if (hidden <= 64) return (int)launch<1, 64, true>(xg, w_cols, hs, t_len, n, hidden, st);
+  return (int)launch<2, 64, false>(xg, w_cols, hs, t_len, n, hidden, st);
 }

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from vocal_remover_tpu_torch.nn import conv_pack as cp
+from vocal_remover_tpu_torch.nn import flat_conv_kernel
 from vocal_remover_tpu_torch.nn.layers import (
     ASPPModule,
     Conv2DBNActiv,
@@ -40,12 +41,24 @@ FLAT_LAYERS = (("enc2_conv1", 2, 2), ("enc2_conv2", 2, 1),
 
 class FlatLayer(nn.Module):
     """Packed operands of one flat conv (`build_flat_layer`), as
-    buffers: `wst` in the weight dtype, `bias` always float32."""
+    buffers: `wst` in the weight dtype, `bias` always float32, and
+    `blocks`, the kernel's walk over the non-zero blocks of `wst`
+    (`flat_conv_kernel.block_table`; built here, not saved with the
+    weights)."""
 
-    def __init__(self, wst: torch.Tensor, bias: torch.Tensor):
+    def __init__(self, wst: torch.Tensor, bias: torch.Tensor, s_list):
         super().__init__()
+        self.s_list = tuple(s_list)
         self.register_buffer("wst", wst)
         self.register_buffer("bias", bias)
+        self.register_buffer("blocks", None, persistent=False)
+        self.set_wst(wst)
+
+    def set_wst(self, wst: torch.Tensor):
+        """Replace `wst` (a cast, say) and rebuild its walk: the kernel's
+        tile depends on the dtype."""
+        self.wst = wst
+        self.blocks = flat_conv_kernel.block_table(wst, self.s_list)
 
 
 class BaseNet(nn.Module):
@@ -91,7 +104,8 @@ class BaseNet(nn.Module):
             rowtaps, s_list = cp.flat_geometry(3, stride)
             arrs = self.flat_enc[name]
             f = cp.flat_layer_apply(
-                {"wst": arrs.wst, "bias": arrs.bias, "rowtaps": rowtaps,
+                {"wst": arrs.wst, "bias": arrs.bias, "blocks": arrs.blocks,
+                 "rowtaps": rowtaps,
                  "s_list": s_list, "stride": stride, "act": "leaky_relu"},
                 f, rows, wb)
             rows //= stride

@@ -86,7 +86,7 @@ def _cast_(model: nn.Module, dtype):
         for p in m.parameters(recurse=False):
             p.data = p.data.to(dtype)
         if isinstance(m, FlatLayer):
-            m.wst = m.wst.to(dtype)  # the bias adds in float32
+            m.set_wst(m.wst.to(dtype))  # the bias adds in float32
     return model
 
 
@@ -110,7 +110,8 @@ def _pack_(model: nn.Module):
                 stride, act="leaky_relu")
             dev = conv.weight.device
             packed[name] = FlatLayer(torch.from_numpy(lay["wst"]).to(dev),
-                                     torch.from_numpy(lay["bias"]).to(dev))
+                                     torch.from_numpy(lay["bias"]).to(dev),
+                                     lay["s_list"])
         net.flat_enc = packed
     return model
 

@@ -140,13 +140,19 @@ def flat_layer_apply(layer, xf, h, wb_out, *, out_dtype=None):
     if mf != h * wb_out:
         raise ValueError(f"flat input has {mf} rows, expected h * wb = "
                          f"{h} * {wb_out}")
-    wst = torch.as_tensor(layer["wst"]).to(device=xf.device, dtype=xf.dtype)
+    wst = torch.as_tensor(layer["wst"])
+    # the walk is made at the tile of wst's dtype: a wst cast here to the
+    # input's dtype needs its own, which the kernel's wrapper builds
+    blocks = layer.get("blocks") if wst.dtype == xf.dtype else None
+    if blocks is not None:
+        blocks = torch.as_tensor(blocks).to(xf.device)
+    wst = wst.to(device=xf.device, dtype=xf.dtype)
     bias = torch.as_tensor(layer["bias"]).to(device=xf.device,
                                              dtype=torch.float32)
     return flat_conv_kernel.flat_conv_core(
         xf, wst, bias, wb=wb_out, h_out=h // st, rowtaps=layer["rowtaps"],
         s_list=layer["s_list"], act=layer["act"],
-        out_dtype=out_dtype or xf.dtype)
+        out_dtype=out_dtype or xf.dtype, blocks=blocks)
 
 
 def to_flat(x, p):

@@ -6,6 +6,10 @@ bounds it). `flat_conv_core` launches it for CUDA tensors and takes the
 plain PyTorch version `flat_conv_core_plain` only for CPU tensors; on a
 CUDA tensor it launches the kernel or raises.
 
+The kernel walks only the slices of `wst` that hold a non-zero:
+`block_table` lists them once per packed layer (models/serving.py keeps
+the table beside `wst`); the plain version stays the dense product.
+
 Operands, as the TPU kernel's: the flat input `xf` (N, H*WB, L), the
 stacked tap matrices `wst` (rowtaps, L, |s_list|*NL), the bias (NL,) in
 float32, and the static geometry (`wb`, `h_out`, `rowtaps`, `s_list`,
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from vocal_remover_tpu_torch import build
@@ -35,6 +40,43 @@ from vocal_remover_tpu_torch.nn.conv_chw_kernel import activate as _activate
 launches = 0
 
 _S_LISTS = ((0,), (-1, 0, 1), (-1, 0))
+
+# the kernel's tile per input type, (K, N): a step of its walk is one
+# (row tap, K-deep slice of L) for one N-wide tile of output lanes
+TILES = {torch.float32: (16, 64), torch.bfloat16: (32, 128)}
+
+
+def block_table(wst, s_list):
+    """The kernel's walk over the non-zero blocks of `wst` (taps, L,
+    S*NL) at the tile of wst's dtype (`TILES`): int32 tensor on wst's
+    device, `n_tiles + 1` offsets (lane tile j owns codes [off[j],
+    off[j+1])) followed by the step codes,
+    each `tap | k_slice << 2 | shifts << 29`, where bit b of `shifts`
+    says that block shift b - 1 has a non-zero in that (tap, K slice,
+    lane tile). Steps run in (tap, K slice) order."""
+    s_list = tuple(s_list)
+    bk, bn = TILES[wst.dtype]
+    n_rt, l_in, nst = wst.shape
+    ns = len(s_list)
+    nl = nst // ns
+    n_ks, n_tiles = -(-l_in // bk), -(-nl // bn)
+    if n_ks >= 1 << 27:
+        raise ValueError(f"L = {l_in} is too deep for the step code")
+    nz = (wst.detach().cpu() != 0).reshape(n_rt, l_in, ns, nl).numpy()
+    nz = np.pad(nz, ((0, 0), (0, n_ks * bk - l_in), (0, 0),
+                     (0, n_tiles * bn - nl)))
+    nz = nz.reshape(n_rt, n_ks, bk, ns, n_tiles, bn).any(
+        axis=(2, 5))  # (taps, K slices, shifts, lane tiles)
+    shifts = sum(nz[:, :, j].astype(np.int64) << (s + 1)
+                 for j, s in enumerate(s_list))  # (taps, K slices, tiles)
+    t, ks = np.meshgrid(np.arange(n_rt), np.arange(n_ks), indexing="ij")
+    codes, offsets = [], [0]
+    for j in range(n_tiles):
+        live = shifts[:, :, j] != 0
+        codes.append(t[live] | ks[live] << 2 | shifts[:, :, j][live] << 29)
+        offsets.append(offsets[-1] + int(live.sum()))
+    table = np.concatenate([np.asarray(offsets, np.int64)] + codes)
+    return torch.from_numpy(table.astype(np.int32)).to(wst.device)
 
 
 def _geometry(rowtaps, s_list):
@@ -126,12 +168,14 @@ def flat_conv_core_plain(xf, wst, bias, *, wb, h_out, rowtaps, s_list, act,
 
 
 def flat_conv_core(xf, wst, bias, *, wb, h_out, rowtaps, s_list, act,
-                   out_dtype):
+                   out_dtype, blocks=None):
     """xf (N, stride*h_out*wb, L), wst (taps, L, S*NL), bias (NL,) f32
     -> (N, h_out*wb, NL) in `out_dtype`.
 
-    CUDA tensors: the hand-written kernel, on the current stream. CPU
-    tensors: `flat_conv_core_plain`."""
+    CUDA tensors: the hand-written kernel, on the current stream, walking
+    `blocks` (`block_table(wst, s_list)` on the card; built here, which
+    reads wst back to the host, when not given). CPU tensors:
+    `flat_conv_core_plain`."""
     global launches
     stride, roffs, h_in, nl = _check(xf, wst, bias, wb, h_out, rowtaps,
                                      s_list, act, out_dtype)
@@ -148,12 +192,23 @@ def flat_conv_core(xf, wst, bias, *, wb, h_out, rowtaps, s_list, act,
     out = torch.empty(n, h_out * wb, nl, device=xf.device, dtype=out_dtype)
     if out.numel() == 0:
         return out
+    if blocks is None:
+        blocks = block_table(wst, s_list)
+    n_tiles = -(-nl // TILES[xf.dtype][1])
+    if blocks.dtype != torch.int32 or blocks.dim() != 1 or \
+            blocks.device != xf.device or blocks.numel() < n_tiles + 1 or \
+            not blocks.is_contiguous():
+        raise ValueError(f"blocks must be the contiguous int32 block_table "
+                         f"of wst on {xf.device} ({n_tiles} lane tiles), got "
+                         f"{blocks.dtype} {tuple(blocks.shape)} on "
+                         f"{blocks.device}")
     lib = _lib()
     roffs = roffs + (0,) * (3 - len(roffs))
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
         err = lib.flat_conv(
-            xf.data_ptr(), wst.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            xf.data_ptr(), wst.data_ptr(), bias.data_ptr(), blocks.data_ptr(),
+            out.data_ptr(),
             n, h_in, h_out, wb, l_in, nl, stride, len(rowtaps), *roffs,
             s_list[0], len(s_list), _ACTS[act],
             int(xf.dtype == torch.bfloat16),
@@ -168,6 +223,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flat_conv")
     if lib.flat_conv.argtypes is None:
         lib.flat_conv.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
         lib.flat_conv.restype = ctypes.c_int
+        for dtype, tile in TILES.items():
+            bf16 = int(dtype == torch.bfloat16)
+            if (lib.flat_conv_block_k(bf16), lib.flat_conv_block_n(bf16)) \
+                    != tile:
+                raise RuntimeError("flat_conv.cu and flat_conv_kernel.py "
+                                   "disagree on the kernel's tile")
     return lib

@@ -35,8 +35,9 @@ def bilstm(params, x):
     xg_b = (torch.einsum("tni,ih->tnh", x.flip(0), pb["w_ih"])
             + pb["b_ih"] + pb["b_hh"])
     xg = torch.cat([xg_f, xg_b], dim=1)  # (T, 2N, 4H), contiguous
-    w_hh = torch.stack([pf["w_hh"], pb["w_hh"]])  # (2, H, 4H)
-    hs = lstm_kernel.recurrence(xg, w_hh)  # (T, 2N, H)
+    # (2, 4H, H): the kernel's layout, torch's weight_hh_l0 stacked
+    w_cols = torch.stack([pf["w_hh"].t(), pb["w_hh"].t()])
+    hs = lstm_kernel.recurrence_cols(xg, w_cols)  # (T, 2N, H)
     return torch.cat([hs[:, :n], hs[:, n:].flip(0)], dim=-1)
 
 

@@ -4,7 +4,9 @@ Counterpart of vocal_remover_tpu/nn/lstm_pallas.py `_run_recurrence`.
 The kernel is csrc/lstm_recurrence.cu (see its header for the design and
 what bounds it). `recurrence` launches it for CUDA tensors and takes the
 plain PyTorch loop `recurrence_plain` only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. The kernel takes the recurrent
+weights one row per gate column (`relayout`); nn/lstm.py stacks them so
+once per call and calls `recurrence_cols`.
 """
 
 from __future__ import annotations
@@ -15,11 +17,25 @@ import torch
 
 from vocal_remover_tpu_torch import build
 
-# kernel launches made by `recurrence` in this process (plain-version
+# kernel launches made by `recurrence_cols` in this process (plain-version
 # calls are not counted)
 launches = 0
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+# the largest hidden size the kernel takes (lstm_recurrence_max_hidden in
+# the source)
+MAX_HIDDEN = 128
+
+
+def relayout(w_hh: torch.Tensor) -> torch.Tensor:
+    """w_hh (2, H, 4H) -> the kernel's w_cols (2, 4H, H), contiguous: one
+    row per gate column, so a thread reads its column in one stretch
+    (torch's own weight_hh_l0 layout, stacked)."""
+    return w_hh.transpose(1, 2).contiguous()
+
+
+def undo_relayout(w_cols: torch.Tensor) -> torch.Tensor:
+    """Inverse of `relayout`."""
+    return w_cols.transpose(1, 2).contiguous()
 
 
 def recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -40,48 +56,63 @@ def recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return torch.stack(out) if out else xg.new_zeros(0, two_n, hidden)
 
 
-def _check(xg: torch.Tensor, w_hh: torch.Tensor):
-    if xg.dim() != 3 or w_hh.dim() != 3:
-        raise ValueError(f"expected xg (T, 2N, 4H) and w_hh (2, H, 4H), got "
-                         f"{tuple(xg.shape)} and {tuple(w_hh.shape)}")
+def _check(xg: torch.Tensor, w: torch.Tensor, cols: bool):
+    name = "w_cols (2, 4H, H)" if cols else "w_hh (2, H, 4H)"
+    if xg.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"expected xg (T, 2N, 4H) and {name}, got "
+                         f"{tuple(xg.shape)} and {tuple(w.shape)}")
     t_len, two_n, four_h = xg.shape
     hidden = four_h // 4
-    if two_n % 2 or four_h % 4 or tuple(w_hh.shape) != (2, hidden, four_h):
-        raise ValueError(f"expected xg (T, 2N, 4H) and w_hh (2, H, 4H), got "
-                         f"{tuple(xg.shape)} and {tuple(w_hh.shape)}")
-    if xg.dtype != torch.float32 or w_hh.dtype != torch.float32:
+    want = (2, four_h, hidden) if cols else (2, hidden, four_h)
+    if two_n % 2 or four_h % 4 or tuple(w.shape) != want:
+        raise ValueError(f"expected xg (T, 2N, 4H) and {name}, got "
+                         f"{tuple(xg.shape)} and {tuple(w.shape)}")
+    if xg.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"the recurrence runs in float32, got {xg.dtype} "
-                        f"and {w_hh.dtype}")
-    if xg.device != w_hh.device:
-        raise ValueError(f"xg on {xg.device} but w_hh on {w_hh.device}")
+                        f"and {w.dtype}")
+    if xg.device != w.device:
+        raise ValueError(f"xg on {xg.device} but the weights on {w.device}")
 
 
 def recurrence(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """xg (T, 2N, 4H) f32, w_hh (2, H, 4H) f32 -> hs (T, 2N, H) f32.
 
-    CUDA tensors: the hand-written kernel, on the current stream. CPU
-    tensors: `recurrence_plain`."""
-    global launches
-    _check(xg, w_hh)
+    CUDA tensors: the hand-written kernel (`recurrence_cols` on the
+    `relayout` of w_hh), on the current stream. CPU tensors:
+    `recurrence_plain`."""
+    _check(xg, w_hh, cols=False)
     if xg.device.type == "cpu":
         return recurrence_plain(xg, w_hh)
+    return recurrence_cols(xg, relayout(w_hh))
+
+
+def recurrence_cols(xg: torch.Tensor, w_cols: torch.Tensor) -> torch.Tensor:
+    """`recurrence` with the weights already in the kernel's layout,
+    w_cols (2, 4H, H) = `relayout(w_hh)`.
+
+    CUDA tensors: the hand-written kernel, on the current stream. CPU
+    tensors: `recurrence_plain` on `undo_relayout(w_cols)`."""
+    global launches
+    _check(xg, w_cols, cols=True)
+    if xg.device.type == "cpu":
+        return recurrence_plain(xg, undo_relayout(w_cols))
     if xg.device.type != "cuda":
         raise ValueError(f"no recurrence kernel for device {xg.device}")
-    if not (xg.is_contiguous() and w_hh.is_contiguous()):
+    if not (xg.is_contiguous() and w_cols.is_contiguous()):
         raise ValueError("the recurrence kernel takes contiguous tensors")
     t_len, two_n, four_h = xg.shape
     hidden = four_h // 4
-    lib = _lib()
-    if four_h > 1024 or lib.lstm_recurrence_smem_bytes(hidden) > _SMEM_LIMIT:
-        raise ValueError(f"hidden size {hidden} exceeds the kernel's block "
-                         "(4H threads, w_hh in shared memory)")
+    if hidden > MAX_HIDDEN:
+        raise ValueError(f"hidden size {hidden} exceeds the kernel's "
+                         f"{MAX_HIDDEN} (4H x KS threads a block)")
     hs = torch.empty(t_len, two_n, hidden, device=xg.device,
                      dtype=torch.float32)
     if t_len == 0 or two_n == 0:
         return hs
+    lib = _lib()
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.lstm_recurrence(xg.data_ptr(), w_hh.data_ptr(),
+        err = lib.lstm_recurrence(xg.data_ptr(), w_cols.data_ptr(),
                                   hs.data_ptr(), t_len, two_n // 2, hidden,
                                   stream)
     if err != 0:
@@ -98,6 +129,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.lstm_recurrence.restype = ctypes.c_int
-        lib.lstm_recurrence_smem_bytes.argtypes = [ctypes.c_int]
-        lib.lstm_recurrence_smem_bytes.restype = ctypes.c_size_t
+        if lib.lstm_recurrence_max_hidden() != MAX_HIDDEN:
+            raise RuntimeError("lstm_recurrence.cu and lstm_kernel.py "
+                               "disagree on the largest hidden size")
     return lib
