@@ -13,7 +13,7 @@ Phases (each prints a line; any failure exits non-zero):
      tolerance, kernel / plain / library times from CUDA events,
      roofline bound from the useful work, and for the two kernels of the
      model paths the share of the bound and the ratio to the library
-     time): the BiLSTM recurrence, and
+     time): the BiLSTM recurrence (also at H = 256, its wide path), and
      the flat conv at all four layers of stg3_full_band_net and of
      stg1_high_band_net in f32 and bf16, plus ragged cases; the three
      channel-major conv kernels (variant A = conv_chw, C = conv_shift,
@@ -23,7 +23,9 @@ Phases (each prints a line; any failure exits non-zero):
   4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
      a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
-     kernel's launch count set to 0 before and read after each run:
+     kernel's launch count set to 0 before and read after each run (first
+     a packed copy, moved to the card and cast to bf16 as a module, is
+     held to carry block_table(wst) on every FlatLayer):
        plain       (first, warm, --tta): recurrence 30 / 60 launches;
        --flat_conv (first, warm, --tta): flat conv 120 / 240, recurrence
                    30 / 60; stems within 1 LSB of the plain path's;
@@ -55,6 +57,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import io
 import json
 import os
@@ -120,7 +123,7 @@ def walked_share(blocks, wst_shape, ns, dtype) -> float:
     n_rt, l_in, nst = wst_shape
     bk, bn = fk.TILES[dtype]
     n_tiles = -(-(nst // ns) // bn)
-    codes = blocks[n_tiles + 1:].cpu().numpy().astype(np.int64)
+    codes = blocks[fk.HEADER + n_tiles + 1:].cpu().numpy().astype(np.int64)
     live = sum(int(((codes >> 29) >> b & 1).sum()) for b in range(3))
     return live / (n_rt * -(-l_in // bk) * ns * n_tiles)
 
@@ -156,9 +159,10 @@ def recurrence_cases():
     """(T, 2N, H, input size) of the main path's launches, flagship at
     crop 256 and batch 4: T = crop / 2, 2N = 2 directions x 4 patches;
     H = 64 (low and full nets; input 256 / 512 bins), 32 (high nets);
-    plus a ragged case the main path does not make."""
+    plus cases the main path does not make: a ragged one, and H = 256
+    (a checkpoint with nout_lstm = 512: the kernel's wide path)."""
     return [(128, 8, 64, 256), (128, 8, 32, 256), (128, 8, 64, 512),
-            (37, 10, 32, 48)]
+            (37, 10, 32, 48), (128, 8, 256, 512)]
 
 
 def phase_recurrence(gen):
@@ -572,6 +576,29 @@ PATHS = {
 }
 
 
+def check_cast_walks(model):
+    """A packed flagship moved to the card and cast to bf16 as a whole
+    module (nn.Module.to) carries, on every FlatLayer, the walk that
+    block_table gives for its cast wst, and a float32 bias."""
+    from vocal_remover_tpu_torch.models import serving
+    from vocal_remover_tpu_torch.models.base_net import FlatLayer
+    from vocal_remover_tpu_torch.nn import flat_conv_kernel as fk
+
+    packed = serving.serving_variables(model, None, flat=True)
+    packed = packed.to("cuda").to(torch.bfloat16)
+    layers = [m for m in packed.modules() if isinstance(m, FlatLayer)]
+    check(len(layers) == 20, f"packed flagship has {len(layers)} flat layers")
+    for lay in layers:
+        check(lay.wst.dtype == torch.bfloat16 and lay.bias.dtype ==
+              torch.float32 and lay.blocks.is_cuda and torch.equal(
+                  lay.blocks, fk.block_table(lay.wst, lay.s_list)),
+              "a FlatLayer cast to bf16 kept a walk made for another wst")
+    print(f"[main] packed flagship .to('cuda').to(bfloat16): all "
+          f"{len(layers)} FlatLayers carry block_table(wst) at the bf16 "
+          "tile", flush=True)
+    del packed
+
+
 def phase_main_path(tmp, seed, counters, per_chunk):
     from vocal_remover_tpu_torch.models import convert
     from vocal_remover_tpu_torch.models.cascaded import (
@@ -586,6 +613,7 @@ def phase_main_path(tmp, seed, counters, per_chunk):
                         generator=torch.Generator().manual_seed(seed))
     n_params = param_count(model)
     check(n_params == FLAGSHIP_PARAMS, f"flagship has {n_params} params")
+    check_cast_walks(model)
     ckpt = os.path.join(tmp, "flagship.vrt.npz")
     convert.save_native(ckpt, convert.to_jax_variables(model),
                         convert.model_config(model))
@@ -670,6 +698,11 @@ def phase_main_path(tmp, seed, counters, per_chunk):
                   f"{len(mine)} launches {ms:.3f} ms ({ms / len(mine):.4f} "
                   "ms a launch; torch.profiler, one more warm run)",
                   flush=True)
+            # the trace holds millions of objects: left alive, the garbage
+            # collector's full passes over it land in the next path's timed
+            # stages (a second and more each); free it here, untimed
+            del prof, mine
+            gc.collect()
     return ckpt, results
 
 
@@ -749,6 +782,7 @@ def phase_profile(ckpt, seed):
             print(f"[profile]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",
                   flush=True)
         del sp, model, prof, kernels
+        gc.collect()  # the trace, outside the next path's timings
 
 
 def main():

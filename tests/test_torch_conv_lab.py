@@ -214,6 +214,10 @@ def cuda_device():
 @pytest.mark.parametrize("n,cin,cout,h,w", [
     (2, 26, 32, 33, 40), (2, 5, 7, 9, 300), (1, 3, 9, 5, 700),
     (1, 16, 24, 20, 64), (2, 32, 32, 64, 256),
+    # the lab's two full shapes (scripts/conv_kernel_lab.py defaults)
+    (8, 32, 32, 1024, 256), (8, 64, 64, 512, 128),
+    # C's weights too many to stay resident: streamed with the input
+    (1, 200, 24, 6, 72),
 ])
 def test_kernels_match_plain_on_card(cuda_device, dtype, tol, variant, n, cin,
                                      cout, h, w):

@@ -264,11 +264,13 @@ GEOMETRIES = [  # (k, stride, cin, cout, p_out)
 
 def _decode(blocks, wst, ns, dtype):
     """-> (offsets, step codes, lane tiles) of a block_table made at the
-    tile of `dtype`."""
+    tile of `dtype`, after checking its header."""
     nl = wst.shape[2] // ns
     n_tiles = -(-nl // flat_conv_kernel.TILES[dtype][1])
     b = blocks.numpy().astype(np.int64)
-    off, codes = b[:n_tiles + 1], b[n_tiles + 1:]
+    head = flat_conv_kernel.HEADER
+    assert tuple(b[:head]) == (*flat_conv_kernel.TILES[dtype], *wst.shape)
+    off, codes = b[head:head + n_tiles + 1], b[head + n_tiles + 1:]
     assert off[0] == 0 and off[-1] == codes.size and np.all(np.diff(off) >= 0)
     return off, codes, n_tiles
 
@@ -466,3 +468,121 @@ def test_apply_drops_a_walk_made_for_another_dtype(monkeypatch):
         tcp.flat_layer_apply(layer, xf, 4, 8)
     assert seen[0] is not None and torch.equal(seen[0], layer["blocks"])
     assert seen[1] is None
+
+
+def _packed_model(seed, dtype=None):
+    from vocal_remover_tpu_torch.models import serving
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+
+    model = CascadedNet(256, 128, 8, 16,
+                        generator=torch.Generator().manual_seed(seed))
+    return serving.serving_variables(model, dtype, flat=True)
+
+
+def _flat_layers(model):
+    from vocal_remover_tpu_torch.models.base_net import FlatLayer
+
+    layers = [m for m in model.modules() if isinstance(m, FlatLayer)]
+    assert layers
+    return layers
+
+
+def test_flat_layers_rebuild_their_walk_after_a_module_cast():
+    """nn.Module.to casts the floating wst but not the int32 walk: each
+    FlatLayer rebuilds the walk at the new dtype's tile, and its bias
+    stays the float32 it was."""
+    packed = _packed_model(0)
+    before = {id(m): (m.blocks, m.bias) for m in _flat_layers(packed)}
+    packed = packed.to("cpu")  # no cast: the walk stays as it is
+    assert all(m.blocks is before[id(m)][0] for m in _flat_layers(packed))
+    packed = packed.to(torch.bfloat16)
+    for lay in _flat_layers(packed):
+        assert lay.wst.dtype == torch.bfloat16
+        assert torch.equal(lay.blocks,
+                           flat_conv_kernel.block_table(lay.wst, lay.s_list))
+        old_blocks, old_bias = before[id(lay)]
+        assert not torch.equal(lay.blocks, old_blocks)  # another tile
+        assert lay.bias.dtype == torch.float32
+        assert torch.equal(lay.bias, old_bias)
+    # a dtype the kernel has no tile for leaves no walk to misuse
+    assert all(m.blocks is None for m in _flat_layers(packed.half()))
+
+
+def test_flat_layers_rebuild_their_walk_after_load_state_dict():
+    """Weights loaded into a packed model (here: one with a pruned lane
+    tile in every wst) bring their own zeros, and so their own walk."""
+    packed = _packed_model(0, "bfloat16")
+    other = _packed_model(1, "bfloat16")
+    state = other.state_dict()
+    for k in state:
+        if k.endswith(".wst"):
+            state[k][:, :, :128] = 0  # the first lane tile of shift -1 / 0
+    old = [lay.blocks for lay in _flat_layers(packed)]
+    packed.load_state_dict(state)
+    for lay, was in zip(_flat_layers(packed), old):
+        want = flat_conv_kernel.block_table(lay.wst, lay.s_list)
+        assert torch.equal(lay.blocks, want)
+        assert not torch.equal(lay.blocks, was)
+
+
+def test_flat_layers_rebuild_their_walk_after_an_in_place_edit(monkeypatch):
+    """An in-place edit of wst, which no hook sees, still reaches the
+    kernel with wst's own walk: the forward reads FlatLayer.walk(),
+    which holds wst's storage and version against the walk's; a move
+    without a cast carries an up-to-date walk along as it is."""
+    seen = []
+    real = flat_conv_kernel.flat_conv_core
+
+    def core(*args, blocks=None, **kw):
+        seen.append((args[1], kw["s_list"], blocks))
+        return real(*args, blocks=blocks, **kw)
+
+    monkeypatch.setattr(flat_conv_kernel, "flat_conv_core", core)
+    packed = _packed_model(0).eval()
+    layers = _flat_layers(packed)
+    fresh = [lay.walk() for lay in layers]
+    assert all(w is lay.blocks for w, lay in zip(fresh, layers))
+    for lay in layers:
+        lay.wst[:, :, :128] = 0  # the first lane tile of shift -1 / 0
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 2, 129, 128), dtype=np.float32))
+    with torch.inference_mode():
+        packed(x)
+    assert seen  # the band nets whose shape takes the flat branch
+    for wst, s_list, blocks in seen:
+        assert torch.equal(blocks, flat_conv_kernel.block_table(wst, s_list))
+    for lay, was in zip(layers, fresh):
+        walked = lay.walk()  # also the layers the forward did not run
+        assert walked is lay.blocks
+        assert torch.equal(walked, flat_conv_kernel.block_table(lay.wst,
+                                                                lay.s_list))
+        assert not torch.equal(walked, was)
+        kept = lay.blocks
+        lay._apply(lambda t: t)  # a move: the walk goes along
+        assert lay.walk() is kept
+
+
+@pytest.mark.parametrize("made_for", ["other dtype", "other shape", "truncated"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_core_rejects_a_walk_made_for_another_tile_or_wst(made_for, dtype):
+    """The walk's header names the tile and wst shape it was made for;
+    the wrapper checks it before it picks a path, so the CPU refuses
+    what the card would."""
+    rng = np.random.default_rng(7)
+    args = _core_args(dtype=dtype, l_in=64, nl=192)
+    args["wst"] = torch.from_numpy(rng.standard_normal(
+        tuple(args["wst"].shape), dtype=np.float32)).to(dtype)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    bad = {
+        "other dtype": flat_conv_kernel.block_table(
+            args["wst"].to(other), args["s_list"]),
+        "other shape": flat_conv_kernel.block_table(
+            args["wst"][:, :32], args["s_list"]),
+        "truncated": flat_conv_kernel.block_table(
+            args["wst"], args["s_list"])[:flat_conv_kernel.HEADER - 1],
+    }[made_for]
+    with pytest.raises(ValueError, match="block_table"):
+        flat_conv_kernel.flat_conv_core(**args, blocks=bad)
+    good = flat_conv_kernel.block_table(args["wst"], args["s_list"])
+    assert torch.equal(flat_conv_kernel.flat_conv_core(**args, blocks=good),
+                       flat_conv_kernel.flat_conv_core_plain(**args))

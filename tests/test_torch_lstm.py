@@ -23,7 +23,8 @@ def _inputs(t_len, two_n, hidden, seed):
     return xg, w_hh
 
 
-@pytest.mark.parametrize("t_len,two_n,hidden", [(16, 8, 16), (33, 4, 32)])
+@pytest.mark.parametrize("t_len,two_n,hidden", [(16, 8, 16), (33, 4, 32),
+                                                (5, 2, 160)])
 def test_recurrence_plain_matches_pallas(t_len, two_n, hidden):
     xg, w_hh = _inputs(t_len, two_n, hidden, seed=t_len)
     ref = np.asarray(_run_recurrence(xg, w_hh, interpret=True))
@@ -37,6 +38,7 @@ def test_recurrence_plain_matches_pallas(t_len, two_n, hidden):
 @pytest.mark.parametrize("t_len,n,input_size,hidden", [
     (16, 4, 32, 16),
     (33, 2, 64, 32),
+    (5, 1, 24, 160),  # H > 128: the kernel's wide path on the card
 ])
 def test_bilstm_matches_pallas(t_len, n, input_size, hidden):
     params = jlstm.init_bilstm(jax.random.PRNGKey(0), input_size, hidden)
@@ -88,10 +90,13 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_len,two_n,hidden", [
     (128, 8, 64), (128, 8, 32), (37, 10, 32), (37, 6, 100), (5, 2, 1),
+    (128, 8, 256), (37, 6, 200), (9, 4, 201), (2, 2, 9700),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, t_len, two_n, hidden):
     """The flagship launches (H = 64, 32), the ragged case, a hidden size
-    past the register-resident weights (H = 100), and H = 1."""
+    past the register-resident weights (H = 100), H = 1, and the wide
+    path past 128: H = 256, 200, 201 (rows of w_cols not whole float4s)
+    and 9700 (the state in device scratch, not shared memory)."""
     xg, w_hh = _inputs(t_len, two_n, hidden, seed=3)
     xg_d = torch.from_numpy(xg).to(cuda_device)
     w_d = torch.from_numpy(w_hh).to(cuda_device)

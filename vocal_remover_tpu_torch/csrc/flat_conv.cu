@@ -40,7 +40,9 @@
 //    steps of wst that hold a non-zero, each with a mask of the shifts that
 //    do (nn/flat_conv_kernel.py `block_table`, built once per packed
 //    layer). A block walks only its tile's list; nothing is loaded or
-//    multiplied for a zero slice.
+//    multiplied for a zero slice. The table's header names the tile and
+//    wst shape it was made for; the wrapper refuses another, and a block
+//    that finds one all the same traps.
 //  * Shift on the input side: a step stages its input slice once, 130 rows
 //    (the tile with a one-row halo each side) x BK lanes, for all shifts;
 //    shift s reads it from row offset s + 1 (ldmatrix takes a row address
@@ -108,7 +110,7 @@ template <>
 struct Tile<float> : TileOf<float, 16, 64, 3, 4, 4, 8> {};
 
 struct Geometry {
-  int h_in, h_out, wb, l_in, nl, stride, ns, s0, n_tiles;
+  int h_in, h_out, wb, l_in, nl, stride, ns, s0, n_tiles, n_rt;
   int roff0, roff1, roff2;
   int act;  // 0 none, 1 relu, 2 leaky_relu(0.01)
   int vec;  // L and NL are whole 16-byte chunks: stage with cp.async
@@ -230,18 +232,34 @@ struct Stager {
   }
 };
 
-// The block's walk: its lane tile's list of steps in `tbl`
-// (tbl[0..n_tiles] offsets, then the step codes).
+// A walk table opens with kHeader ints: the tile (BK, BN) and wst's shape
+// (taps, L, S*NL) it was made for (nn/flat_conv_kernel.py HEADER).
+constexpr int kHeader = 5;
+
+// The block's walk: its lane tile's list of steps in `tbl` (the header,
+// then n_tiles + 1 offsets, then the step codes).
 struct Walk {
   const int* codes;
   int n;
   __device__ Walk(const int* tbl, int n_tiles, int tile) {
-    const int lo = __ldg(tbl + tile), hi = __ldg(tbl + tile + 1);
-    codes = tbl + n_tiles + 1 + lo;
+    const int* off = tbl + kHeader;
+    const int lo = __ldg(off + tile), hi = __ldg(off + tile + 1);
+    codes = off + n_tiles + 1 + lo;
     n = hi - lo;
   }
   __device__ int operator[](int i) const { return __ldg(codes + i); }
 };
+
+// The wrapper refuses a table made for another tile or wst; a table that
+// gets here all the same stops the kernel rather than walk wrong blocks.
+template <typename T>
+__device__ __forceinline__ void check_table(const int* tbl, const Geometry& q) {
+  if (__ldg(tbl) != Tile<T>::kBK || __ldg(tbl + 1) != Tile<T>::kBN ||
+      __ldg(tbl + 2) != q.n_rt || __ldg(tbl + 3) != q.l_in ||
+      __ldg(tbl + 4) != q.ns * q.nl) {
+    __trap();
+  }
+}
 
 // ----------------------------------------------- tensor-core products --
 
@@ -377,6 +395,7 @@ flat_conv_mma(const T* __restrict__ x, const T* __restrict__ wst,
   const int n0 = blockIdx.y * TL::kBN;
   const int m_out = q.h_out * q.wb;
   const T* xi = x + (size_t)blockIdx.z * q.h_in * q.wb * q.l_in;
+  check_table<T>(tbl, q);
   const Walk walk(tbl, q.n_tiles, blockIdx.y);
 
   // keep bits of this thread's 2*MI A rows (m16 tile mi, half h: row
@@ -480,10 +499,13 @@ extern "C" int flat_conv_block_n(int in_bf16) {
   return in_bf16 ? Tile<__nv_bfloat16>::kBN : Tile<float>::kBN;
 }
 
+// Ints of a walk table's header (HEADER of nn/flat_conv_kernel.py).
+extern "C" int flat_conv_table_header() { return kHeader; }
+
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 when
 // the launch was accepted). Does not synchronise. Pointers are device
 // pointers to contiguous arrays; x and wst share one type (in_bf16). `tbl`
-// is the walk (n_tiles + 1 offsets, then the step codes) that
+// is the walk (header, n_tiles + 1 offsets, then the step codes) that
 // nn/flat_conv_kernel.py `block_table` builds for this wst.
 extern "C" int flat_conv(const void* x, const void* wst, const void* bias,
                          const int* tbl, void* out, int n, int h_in, int h_out,
@@ -500,7 +522,7 @@ extern "C" int flat_conv(const void* x, const void* wst, const void* bias,
   }
   const int chunk = in_bf16 ? 8 : 4;
   const int vec = l_in % chunk == 0 && nl % chunk == 0;
-  const Geometry q{h_in, h_out, wb, l_in, nl, stride, ns, s0, n_tiles,
+  const Geometry q{h_in, h_out, wb, l_in, nl, stride, ns, s0, n_tiles, n_rt,
                    roff0, roff1, roff2, act, vec};
   const dim3 grid((h_out * wb + kBM - 1) / kBM, n_tiles, n);
   const float* b = static_cast<const float*>(bias);

@@ -44,7 +44,17 @@ class FlatLayer(nn.Module):
     buffers: `wst` in the weight dtype, `bias` always float32, and
     `blocks`, the kernel's walk over the non-zero blocks of `wst`
     (`flat_conv_kernel.block_table`; built here, not saved with the
-    weights)."""
+    weights). The walk depends on wst's values and, through the
+    kernel's tile, on its dtype, so it is rebuilt whenever they may have
+    changed: `set_wst`, a `.to()` / `.half()`-style cast of the module
+    (a move to another device carries the table along), and
+    `load_state_dict`; `walk()`, which the forward reads, also rebuilds
+    it after an in-place edit of wst or a wst put in another way (it
+    holds wst's storage and version against those the walk was built
+    from; an inference tensor keeps no version, so an in-place edit of
+    such a wst in inference mode is not seen). A dtype the kernel takes
+    no tile for has no walk (None): the kernel's wrapper refuses such a
+    wst."""
 
     def __init__(self, wst: torch.Tensor, bias: torch.Tensor, s_list):
         super().__init__()
@@ -55,10 +65,36 @@ class FlatLayer(nn.Module):
         self.set_wst(wst)
 
     def set_wst(self, wst: torch.Tensor):
-        """Replace `wst` (a cast, say) and rebuild its walk: the kernel's
-        tile depends on the dtype."""
+        """Replace `wst` (a cast, say) and rebuild its walk."""
         self.wst = wst
-        self.blocks = flat_conv_kernel.block_table(wst, self.s_list)
+        self._rebuild_walk()
+
+    def walk(self):
+        """`blocks`, rebuilt first if wst is not what it was built from."""
+        if flat_conv_kernel.storage_key(self.wst) != self._walk_of:
+            self._rebuild_walk()
+        return self.blocks
+
+    def _rebuild_walk(self):
+        self.blocks = flat_conv_kernel.block_table(self.wst, self.s_list) \
+            if self.wst.dtype in flat_conv_kernel.TILES else None
+        self._walk_of = flat_conv_kernel.storage_key(self.wst)
+
+    def _apply(self, fn, recurse=True):
+        bias, dtype = self.bias, self.wst.dtype
+        stale = flat_conv_kernel.storage_key(self.wst) != self._walk_of
+        out = super()._apply(fn, recurse)
+        if self.bias.dtype != bias.dtype:  # the bias adds in float32
+            self.bias = bias.to(self.bias.device)
+        if stale or self.wst.dtype != dtype:
+            self._rebuild_walk()
+        else:  # a move: the table went along with wst
+            self._walk_of = flat_conv_kernel.storage_key(self.wst)
+        return out
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._rebuild_walk()
 
 
 class BaseNet(nn.Module):
@@ -104,7 +140,7 @@ class BaseNet(nn.Module):
             rowtaps, s_list = cp.flat_geometry(3, stride)
             arrs = self.flat_enc[name]
             f = cp.flat_layer_apply(
-                {"wst": arrs.wst, "bias": arrs.bias, "blocks": arrs.blocks,
+                {"wst": arrs.wst, "bias": arrs.bias, "blocks": arrs.walk(),
                  "rowtaps": rowtaps,
                  "s_list": s_list, "stride": stride, "act": "leaky_relu"},
                 f, rows, wb)

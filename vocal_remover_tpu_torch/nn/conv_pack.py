@@ -141,8 +141,12 @@ def flat_layer_apply(layer, xf, h, wb_out, *, out_dtype=None):
         raise ValueError(f"flat input has {mf} rows, expected h * wb = "
                          f"{h} * {wb_out}")
     wst = torch.as_tensor(layer["wst"])
-    # the walk is made at the tile of wst's dtype: a wst cast here to the
-    # input's dtype needs its own, which the kernel's wrapper builds
+    # the walk is made at the tile of wst's dtype, and this function takes
+    # a wst of either dtype and casts it to the input's: the stored walk
+    # would then be refused by the wrapper (its header names the other
+    # tile), so such a call passes none and the wrapper builds the cast
+    # wst's own (a read-back of wst every call; the model's FlatLayers
+    # keep wst in the activation dtype and never take this branch)
     blocks = layer.get("blocks") if wst.dtype == xf.dtype else None
     if blocks is not None:
         blocks = torch.as_tensor(blocks).to(xf.device)

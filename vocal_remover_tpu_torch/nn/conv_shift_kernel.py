@@ -48,7 +48,10 @@ def conv_shift_plain(x, w2, b, *, act, out_dtype):
     Cin) on the unshifted full-width stack, and the dx alignment on the
     output side as three shifted slice-adds of the partial sums; float32
     throughout (bf16 operands are widened first), bias, activation,
-    cast."""
+    cast. The kernel multiplies on the tensor cores: bf16 products are
+    exact in float32 there too, so only the order of the sum differs;
+    float32 operands go as three TF32 products (3xTF32), which drops
+    about 2^-21 of each product."""
     check_3x3(x, w2, b, act, out_dtype)
     n, c, h, w = x.shape
     xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1))

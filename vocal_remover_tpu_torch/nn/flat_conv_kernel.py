@@ -7,8 +7,12 @@ plain PyTorch version `flat_conv_core_plain` only for CPU tensors; on a
 CUDA tensor it launches the kernel or raises.
 
 The kernel walks only the slices of `wst` that hold a non-zero:
-`block_table` lists them once per packed layer (models/serving.py keeps
-the table beside `wst`); the plain version stays the dense product.
+`block_table` lists them once per packed layer (models/base_net.py
+`FlatLayer` keeps the table beside `wst` and rebuilds it whenever `wst`
+may have changed); the plain version stays the dense product. The table
+opens with a header naming the tile and the `wst` shape it was made
+for, and `flat_conv_core` refuses a table whose header does not match
+the call, on the CPU as on the card.
 
 Operands, as the TPU kernel's: the flat input `xf` (N, H*WB, L), the
 stacked tap matrices `wst` (rowtaps, L, |s_list|*NL), the bias (NL,) in
@@ -45,17 +49,33 @@ _S_LISTS = ((0,), (-1, 0, 1), (-1, 0))
 # (row tap, K-deep slice of L) for one N-wide tile of output lanes
 TILES = {torch.float32: (16, 64), torch.bfloat16: (32, 128)}
 
+# ints of a walk table's header (flat_conv_table_header in the source)
+HEADER = 5
+
+
+def walk_header(wst, dtype=None):
+    """The header of the walk that the kernel takes for `wst` at the
+    tile of `dtype` (default wst's): (BK, BN, taps, L, S*NL)."""
+    return (*TILES[dtype or wst.dtype], *wst.shape)
+
+
+def storage_key(t):
+    """(data pointer, version) of a tensor: a new storage or an in-place
+    edit changes it. An inference tensor keeps no version (None)."""
+    return t.data_ptr(), None if t.is_inference() else t._version
+
 
 def block_table(wst, s_list):
     """The kernel's walk over the non-zero blocks of `wst` (taps, L,
     S*NL) at the tile of wst's dtype (`TILES`): int32 tensor on wst's
-    device, `n_tiles + 1` offsets (lane tile j owns codes [off[j],
-    off[j+1])) followed by the step codes,
-    each `tap | k_slice << 2 | shifts << 29`, where bit b of `shifts`
-    says that block shift b - 1 has a non-zero in that (tap, K slice,
-    lane tile). Steps run in (tap, K slice) order."""
+    device, the `HEADER` ints of `walk_header(wst)`, then `n_tiles + 1`
+    offsets (lane tile j owns codes [off[j], off[j+1])), then the step
+    codes, each `tap | k_slice << 2 | shifts << 29`, where bit b of
+    `shifts` says that block shift b - 1 has a non-zero in that (tap, K
+    slice, lane tile). Steps run in (tap, K slice) order."""
     s_list = tuple(s_list)
-    bk, bn = TILES[wst.dtype]
+    header = walk_header(wst)
+    bk, bn = header[:2]
     n_rt, l_in, nst = wst.shape
     ns = len(s_list)
     nl = nst // ns
@@ -75,8 +95,39 @@ def block_table(wst, s_list):
         live = shifts[:, :, j] != 0
         codes.append(t[live] | ks[live] << 2 | shifts[:, :, j][live] << 29)
         offsets.append(offsets[-1] + int(live.sum()))
-    table = np.concatenate([np.asarray(offsets, np.int64)] + codes)
-    return torch.from_numpy(table.astype(np.int32)).to(wst.device)
+    table = np.concatenate([np.asarray(header + tuple(offsets), np.int64)]
+                           + codes)
+    table = torch.from_numpy(table.astype(np.int32)).to(wst.device)
+    table._walk_memo = (*storage_key(table), header)
+    return table
+
+
+def _read_header(blocks):
+    """The header of a walk table. A table on the card is read back once
+    (that waits for its stream) and remembered for this tensor while
+    its storage and version stay the same (the memo is an attribute of
+    the tensor); `block_table` records its own."""
+    key = storage_key(blocks)
+    memo = getattr(blocks, "_walk_memo", None)
+    if memo is None or memo[:2] != key:
+        memo = blocks._walk_memo = (*key, tuple(blocks[:HEADER].tolist()))
+    return memo[2]
+
+
+def _check_walk(blocks, xf, wst):
+    """Refuse a walk table that was not made for this wst at the tile of
+    xf's dtype."""
+    if blocks.dtype != torch.int32 or blocks.dim() != 1 or \
+            blocks.device != xf.device or blocks.numel() < HEADER or \
+            not blocks.is_contiguous():
+        raise ValueError(f"blocks must be the contiguous int32 block_table "
+                         f"of wst on {xf.device}, got {blocks.dtype} "
+                         f"{tuple(blocks.shape)} on {blocks.device}")
+    want, got = walk_header(wst, xf.dtype), _read_header(blocks)
+    if got != want:
+        raise ValueError(f"blocks is a block_table made for (tile, wst "
+                         f"shape) {got[:2]}, {got[2:]}, but this call needs "
+                         f"{want[:2]}, {want[2:]}")
 
 
 def _geometry(rowtaps, s_list):
@@ -179,6 +230,8 @@ def flat_conv_core(xf, wst, bias, *, wb, h_out, rowtaps, s_list, act,
     global launches
     stride, roffs, h_in, nl = _check(xf, wst, bias, wb, h_out, rowtaps,
                                      s_list, act, out_dtype)
+    if blocks is not None:
+        _check_walk(blocks, xf, wst)
     if xf.device.type == "cpu":
         return flat_conv_core_plain(
             xf, wst, bias, wb=wb, h_out=h_out, rowtaps=rowtaps,
@@ -194,14 +247,6 @@ def flat_conv_core(xf, wst, bias, *, wb, h_out, rowtaps, s_list, act,
         return out
     if blocks is None:
         blocks = block_table(wst, s_list)
-    n_tiles = -(-nl // TILES[xf.dtype][1])
-    if blocks.dtype != torch.int32 or blocks.dim() != 1 or \
-            blocks.device != xf.device or blocks.numel() < n_tiles + 1 or \
-            not blocks.is_contiguous():
-        raise ValueError(f"blocks must be the contiguous int32 block_table "
-                         f"of wst on {xf.device} ({n_tiles} lane tiles), got "
-                         f"{blocks.dtype} {tuple(blocks.shape)} on "
-                         f"{blocks.device}")
     lib = _lib()
     roffs = roffs + (0,) * (3 - len(roffs))
     with torch.cuda.device(xf.device):
@@ -231,4 +276,7 @@ def _lib() -> ctypes.CDLL:
                     != tile:
                 raise RuntimeError("flat_conv.cu and flat_conv_kernel.py "
                                    "disagree on the kernel's tile")
+        if lib.flat_conv_table_header() != HEADER:
+            raise RuntimeError("flat_conv.cu and flat_conv_kernel.py "
+                               "disagree on the walk table's header")
     return lib

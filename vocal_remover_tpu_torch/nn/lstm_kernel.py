@@ -21,11 +21,6 @@ from vocal_remover_tpu_torch import build
 # calls are not counted)
 launches = 0
 
-# the largest hidden size the kernel takes (lstm_recurrence_max_hidden in
-# the source)
-MAX_HIDDEN = 128
-
-
 def relayout(w_hh: torch.Tensor) -> torch.Tensor:
     """w_hh (2, H, 4H) -> the kernel's w_cols (2, 4H, H), contiguous: one
     row per gate column, so a thread reads its column in one stretch
@@ -102,19 +97,20 @@ def recurrence_cols(xg: torch.Tensor, w_cols: torch.Tensor) -> torch.Tensor:
         raise ValueError("the recurrence kernel takes contiguous tensors")
     t_len, two_n, four_h = xg.shape
     hidden = four_h // 4
-    if hidden > MAX_HIDDEN:
-        raise ValueError(f"hidden size {hidden} exceeds the kernel's "
-                         f"{MAX_HIDDEN} (4H x KS threads a block)")
     hs = torch.empty(t_len, two_n, hidden, device=xg.device,
                      dtype=torch.float32)
     if t_len == 0 or two_n == 0:
         return hs
     lib = _lib()
+    # a row's state lives in shared memory unless H is too large for it
+    n_scratch = lib.lstm_recurrence_scratch(two_n // 2, hidden)
+    scratch = torch.empty(n_scratch, device=xg.device) if n_scratch else None
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.lstm_recurrence(xg.data_ptr(), w_cols.data_ptr(),
-                                  hs.data_ptr(), t_len, two_n // 2, hidden,
-                                  stream)
+        err = lib.lstm_recurrence(
+            xg.data_ptr(), w_cols.data_ptr(), hs.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, t_len,
+            two_n // 2, hidden, stream)
     if err != 0:
         raise RuntimeError(f"lstm_recurrence launch failed: CUDA error {err}")
     launches += 1
@@ -126,10 +122,10 @@ def _lib() -> ctypes.CDLL:
     if lib.lstm_recurrence.argtypes is None:
         lib.lstm_recurrence.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.lstm_recurrence.restype = ctypes.c_int
-        if lib.lstm_recurrence_max_hidden() != MAX_HIDDEN:
-            raise RuntimeError("lstm_recurrence.cu and lstm_kernel.py "
-                               "disagree on the largest hidden size")
+        lib.lstm_recurrence_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lstm_recurrence_scratch.restype = ctypes.c_longlong
     return lib

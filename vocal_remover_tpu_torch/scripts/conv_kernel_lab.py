@@ -7,9 +7,11 @@ layout and differ in where the tap shifts happen:
   A  staged im2col indexing: the input patch of an output tile sits in
      shared memory and the K = 9*Cin loop indexes it at each tap's
      (dy, dx) (nn/conv_chw.py `fused_conv_chw`, csrc/conv_chw.cu).
-  C  output-shift: every staged input value is read once and meets the
-     weights of all three dx; the three partial sums are aligned on the
-     output side with warp shuffles (csrc/conv_shift.cu).
+  C  output-shift: the unshifted dy-stack of the input is staged once and
+     each staged column meets the weights of all three dx, in three
+     tensor-core products (mma.sync; 3xTF32 in float32); the three partial
+     sums are aligned on the output side with warp shuffles of the
+     accumulator fragments (csrc/conv_shift.cu).
   D  tap-dot: no staging of the input at all, nine accumulating K = Cin
      products on offset views read straight from device memory
      (csrc/conv_tapdot.cu).
