@@ -11,15 +11,16 @@ Phases (each prints a line; any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main paths' shapes (max abs error against a stated
      tolerance, kernel / plain / library times from CUDA events,
-     roofline bound from the useful work, and for the two kernels of the
-     model paths the share of the bound and the ratio to the library
-     time): the BiLSTM recurrence (also at H = 256, its wide path), and
-     the flat conv at all four layers of stg3_full_band_net and of
+     roofline bound from the useful work, the share of the bound and the
+     ratio to the library time; C and D in f32 also the bound at the
+     3xTF32 rate): the BiLSTM recurrence (also at H = 256, its wide
+     path), and the flat conv at all four layers of stg3_full_band_net and of
      stg1_high_band_net in f32 and bf16, plus ragged cases; the three
      channel-major conv kernels (variant A = conv_chw, C = conv_shift,
      D = conv_tapdot) at the conv kernel lab's shapes, (8, 32, 1024, 256)
      and (8, 64, 512, 128), in f32 and bf16, A also at stride 2, 1x1 and
-     a ragged shape, C and D at ragged shapes;
+     a ragged shape, C and D at ragged shapes, on an unaligned input and
+     at Cin 512;
   4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
      a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
@@ -332,13 +333,21 @@ def chw_conv_cases():
     """(label, N, Cin, Cout, H, W, k, stride, variants): the lab's two
     shapes for all three variants; for A also a stride-2 conv through
     space_to_depth, a 1x1 and a ragged shape; for C and D ragged
-    shapes, one wider than C's 256-lane tile."""
+    shapes: one wider than C's 256-lane tile, Cin no multiple of a
+    channel chunk (40; 200, whose weights are streamed), Cout 7, H no
+    multiple of a row tile, W no whole staging load (302), an input one
+    element into its storage ("unaligned": not 16-byte aligned), and Cin
+    512 (the longest sums, where a float32 error would grow most)."""
     cases = [(f"lab {c}ch", n, c, c, h, w, 3, 1, "ACD")
              for n, c, h, w in LAB_SHAPES]
     cases += [("stride 2", 8, 32, 64, 1024, 256, 3, 2, "A"),
               ("1x1", 4, 64, 32, 256, 128, 1, 1, "A"),
               ("ragged", 2, 26, 32, 33, 40, 3, 1, "ACD"),
-              ("ragged wide", 2, 5, 7, 9, 300, 3, 1, "CD")]
+              ("ragged wide", 2, 5, 7, 9, 300, 3, 1, "CD"),
+              ("ragged cin 40", 1, 40, 7, 13, 302, 3, 1, "CD"),
+              ("ragged cin 200", 2, 200, 7, 11, 300, 3, 1, "CD"),
+              ("unaligned", 2, 24, 20, 19, 64, 3, 1, "CD"),
+              ("deep cin 512", 1, 512, 32, 16, 64, 3, 1, "CD")]
     return cases
 
 
@@ -353,7 +362,10 @@ def phase_chw_convs(seed):
     sum, which they reach in another order).
     Bound: the conv's USEFUL work, whatever computes it: FLOPs = 2 N H_out
     W_out Cout k k Cin over the f32 FFMA peak (f32) or the bf16
-    tensor-core peak (bf16), bytes = input + output + weights + bias once.
+    tensor-core peak (bf16), bytes = input + output + weights + bias once;
+    the f32 lines of C and D, which multiply as three TF32 products
+    (3xTF32), also give the bound at that rate (three times the FLOPs
+    over the TF32 peak).
     Library yardstick (never called by the port's kernels' wrappers): one
     torch.nn.functional.conv2d with bias on the NCHW tensor, plus the
     activation, in contiguous and in channels_last memory format; the
@@ -380,6 +392,11 @@ def phase_chw_convs(seed):
         big = n * cin * h * w >= 1 << 24
         for dtype, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             x = x32.to(dtype)
+            if label == "unaligned":  # a view one element into its storage
+                x = torch.zeros(x.numel() + 1, dtype=dtype,
+                                device="cuda")[1:].view(x.shape).copy_(x)
+                check(x.is_contiguous() and x.data_ptr() % 16 != 0,
+                      "unaligned case: the input is aligned")
             size = x.element_size()
             n_bytes = size * (x.numel() + n * cout * h_out * w_out
                               + wk.size) + 4 * cout
@@ -446,6 +463,11 @@ def phase_chw_convs(seed):
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 }
                 rows.append(row)
+                tf32 = ""
+                if v in "CD" and dtype == torch.float32:
+                    tf32 = (f"; 3xTF32 rate "
+                            f"{max(t_bytes, 3e3 * flops / PEAK_TF32_FLOPS):.4f}"
+                            " ms")
                 print(f"[kernel] {name} {label} {tname} x{(n, cin, h, w)} "
                       f"{k}x{k} s{stride} -> {cout}ch: max_abs_err {err:.3g} "
                       f"(tol {tol:.3g}), kernel {ms:.4f} ms, plain "
@@ -454,8 +476,8 @@ def phase_chw_convs(seed):
                       f"{lib['contiguous']:.4f}, channels_last "
                       f"{lib['channels_last']:.4f}), bound "
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                      f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB)",
-                      flush=True)
+                      f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB"
+                      f"{tf32}); {share(row)}", flush=True)
             del x
         del x32
         torch.cuda.empty_cache()

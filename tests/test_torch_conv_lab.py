@@ -96,6 +96,10 @@ def test_weights_equal_the_labs(jlab, cin, cout):
     (1, 4, 4, 20, 40, True),    # ragged H (20 rows in tiles of 8)
     (2, 3, 5, 16, 24, True),    # Cin != Cout
     (1, 4, 6, 13, 40, False),   # no activation
+    # D's ragged edges, tiny: Cin no multiple of a channel chunk, Cout
+    # under one m16 tile, H no multiple of the row tile, W no whole chunk
+    (1, 40, 7, 13, 30, True),
+    (1, 5, 7, 11, 42, False),
 ])
 def test_f32_matches_the_lab(jlab, monkeypatch, variant, n, cin, cout, h, w,
                              act):
@@ -106,18 +110,28 @@ def test_f32_matches_the_lab(jlab, monkeypatch, variant, n, cin, cout, h, w,
     np.testing.assert_allclose(out, ref, atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("variant", ["C", "D"])
-def test_bf16_matches_the_lab(jlab, monkeypatch, variant):
+def _check_bf16(jlab, monkeypatch, variant, x, wk, b):
     """bf16 in and out, compared in float32: against the f32 result with
     the bounds of tests/test_conv_pallas.py::test_bf16_io, and against
     the lab's bf16 output within one bf16 step."""
-    x, wk, b = _inputs(1, 4, 6, 20, 40, seed=11)
     full = _port_call(variant, x, wk, b, True, torch.float32)
     ref = _jax_call(jlab, monkeypatch, variant, x, wk, b, True, jnp.bfloat16)
     out = _port_call(variant, x, wk, b, True, torch.bfloat16)
     assert np.abs(out - full).max() < 0.1
     assert np.abs(out - full).mean() < 0.01
     assert np.abs(out - ref).max() <= 2.0 ** -7 * np.abs(full).max()
+
+
+@pytest.mark.parametrize("variant", ["C", "D"])
+def test_bf16_matches_the_lab(jlab, monkeypatch, variant):
+    _check_bf16(jlab, monkeypatch, variant, *_inputs(1, 4, 6, 20, 40, seed=11))
+
+
+@pytest.mark.parametrize("variant", ["C", "D"])
+def test_bf16_matches_the_lab_at_ragged_edges(jlab, monkeypatch, variant):
+    """D's ragged edges: Cin 40 (no multiple of the 32-channel chunk),
+    Cout 7, H 13, W 30."""
+    _check_bf16(jlab, monkeypatch, variant, *_inputs(1, 40, 7, 13, 30, seed=12))
 
 
 @pytest.mark.parametrize("act", ["leaky_relu", "relu", None])
@@ -207,30 +221,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2.0 ** -6)])
-@pytest.mark.parametrize("variant", ["C", "D"])
-@pytest.mark.parametrize("n,cin,cout,h,w", [
-    (2, 26, 32, 33, 40), (2, 5, 7, 9, 300), (1, 3, 9, 5, 700),
-    (1, 16, 24, 20, 64), (2, 32, 32, 64, 256),
-    # the lab's two full shapes (scripts/conv_kernel_lab.py defaults)
-    (8, 32, 32, 1024, 256), (8, 64, 64, 512, 128),
-    # C's weights too many to stay resident: streamed with the input
-    (1, 200, 24, 6, 72),
-])
-def test_kernels_match_plain_on_card(cuda_device, dtype, tol, variant, n, cin,
-                                     cout, h, w):
-    """The CUDA kernels against their plain versions on the same device
+CARD_TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)]
+CARD_KERNELS = {"C": (conv_shift_kernel, "conv_shift", tlab.weights_c),
+                "D": (conv_tapdot_kernel, "conv_tapdot", tlab.weights_d)}
+
+
+def _check_on_card(variant, x, wk, b, dtype, tol):
+    """The CUDA kernel against its plain version on the same device
     tensors; bf16 is compared in the working type (one bf16 step at the
     output's magnitude)."""
-    module, name, weights = {
-        "C": (conv_shift_kernel, "conv_shift", tlab.weights_c),
-        "D": (conv_tapdot_kernel, "conv_tapdot", tlab.weights_d)}[variant]
-    x, wk, b = _inputs(n, cin, cout, h, w, seed=5)
-    args = (torch.from_numpy(x).to(cuda_device, dtype),
-            weights(wk, dtype).to(cuda_device),
-            torch.from_numpy(b).to(cuda_device))
+    module, name, weights = CARD_KERNELS[variant]
+    args = (x, weights(wk, dtype).to(x.device),
+            torch.from_numpy(b).to(x.device))
     kw = dict(act="leaky_relu", out_dtype=dtype)
     before = module.launches
     out = getattr(module, name)(*args, **kw)
@@ -239,3 +241,45 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol, variant, n, cin,
     ref = getattr(module, name + "_plain")(*args, **kw)
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_TOLS)
+@pytest.mark.parametrize("variant", ["C", "D"])
+@pytest.mark.parametrize("n,cin,cout,h,w", [
+    (2, 26, 32, 33, 40), (2, 5, 7, 9, 300), (1, 3, 9, 5, 700),
+    (1, 16, 24, 20, 64), (2, 32, 32, 64, 256),
+    # the lab's two full shapes (scripts/conv_kernel_lab.py defaults)
+    (8, 32, 32, 1024, 256), (8, 64, 64, 512, 128),
+    # weights too many to stay resident: streamed with the input
+    (1, 200, 24, 6, 72),
+    # D's ragged edges: Cin 40 / 200 (no multiple of a channel chunk; 200
+    # streams its weights), Cout 7 (under one m16 tile), H 13 / 11 (no
+    # multiple of the 8-row tile), W 302 (no whole 4-column staging load:
+    # plain loads) and 300 (no whole 16-byte chunk)
+    (1, 40, 7, 13, 302), (2, 200, 7, 11, 300),
+    # the longest sums: a float32 error that grows with Cin shows here
+    (1, 512, 32, 16, 64),
+])
+def test_kernels_match_plain_on_card(cuda_device, dtype, tol, variant, n, cin,
+                                     cout, h, w):
+    """The CUDA kernels against their plain versions on the same device
+    tensors."""
+    x, wk, b = _inputs(n, cin, cout, h, w, seed=5)
+    _check_on_card(variant, torch.from_numpy(x).to(cuda_device, dtype), wk, b,
+                   dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_TOLS)
+@pytest.mark.parametrize("variant", ["C", "D"])
+def test_kernels_take_an_unaligned_input_on_card(cuda_device, dtype, tol,
+                                                 variant):
+    """An input that is a contiguous view one element into its storage
+    (not 16-byte aligned) takes the kernels' plain-load staging."""
+    x, wk, b = _inputs(2, 24, 20, 19, 64, seed=6)
+    flat = torch.zeros(x.size + 1, dtype=dtype, device=cuda_device)
+    xt = flat[1:].view(x.shape)
+    xt.copy_(torch.from_numpy(x))
+    assert xt.is_contiguous() and xt.data_ptr() % 16 != 0
+    _check_on_card(variant, xt, wk, b, dtype, tol)

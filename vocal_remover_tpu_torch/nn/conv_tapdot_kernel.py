@@ -2,7 +2,10 @@
 wrapper and its plain version.
 
 Counterpart of scripts/conv_kernel_lab.py `build_call_d`. The kernel is
-csrc/conv_tapdot.cu (see its header for the design and what bounds it).
+csrc/conv_tapdot.cu (see its header for the design and what bounds it):
+one input tile a block staged channel-innermost in shared memory, and nine
+accumulating K = Cin tensor-core products, each reading the tile at its
+tap's (dy, dx) offset.
 `conv_tapdot` launches it for CUDA tensors and takes the plain PyTorch
 version `conv_tapdot_plain` only for CPU tensors; on a CUDA tensor it
 launches the kernel or raises.
@@ -37,7 +40,10 @@ def conv_tapdot_plain(x, w2, b, *, act, out_dtype):
     """The kernel's arithmetic in plain PyTorch: nine accumulating K =
     Cin products, each on an offset slice of the zero-padded input, no
     stacked copy; float32 throughout (bf16 operands are widened first),
-    bias, activation, cast."""
+    bias, activation, cast. The kernel multiplies on the tensor cores:
+    bf16 products are exact in float32 there too, so only the order of
+    the sum differs; float32 operands go as three TF32 products
+    (3xTF32), which drops about 2^-21 of each product."""
     check_3x3(x, w2, b, act, out_dtype)
     n, c, h, w = x.shape
     xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1))

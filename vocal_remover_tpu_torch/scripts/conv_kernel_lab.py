@@ -12,8 +12,9 @@ layout and differ in where the tap shifts happen:
      tensor-core products (mma.sync; 3xTF32 in float32); the three partial
      sums are aligned on the output side with warp shuffles of the
      accumulator fragments (csrc/conv_shift.cu).
-  D  tap-dot: no staging of the input at all, nine accumulating K = Cin
-     products on offset views read straight from device memory
+  D  tap-dot: one input tile a block staged channel-innermost, nine
+     accumulating K = Cin tensor-core products (mma.sync; 3xTF32 in
+     float32), each reading the tile at its tap's (dy, dx) offset
      (csrc/conv_tapdot.cu).
 
 Run:  python -m vocal_remover_tpu_torch.scripts.conv_kernel_lab [--shapes ...]
