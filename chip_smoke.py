@@ -12,15 +12,15 @@ Phases (each prints a line; any failure exits non-zero):
      at the main paths' shapes (max abs error against a stated
      tolerance, kernel / plain / library times from CUDA events,
      roofline bound from the useful work, the share of the bound and the
-     ratio to the library time; C and D in f32 also the bound at the
+     ratio to the library time; A, C and D in f32 also the bound at the
      3xTF32 rate): the BiLSTM recurrence (also at H = 256, its wide
      path), and the flat conv at all four layers of stg3_full_band_net and of
      stg1_high_band_net in f32 and bf16, plus ragged cases; the three
      channel-major conv kernels (variant A = conv_chw, C = conv_shift,
      D = conv_tapdot) at the conv kernel lab's shapes, (8, 32, 1024, 256)
-     and (8, 64, 512, 128), in f32 and bf16, A also at stride 2, 1x1 and
-     a ragged shape, C and D at ragged shapes, on an unaligned input and
-     at Cin 512;
+     and (8, 64, 512, 128), in f32 and bf16, all three at ragged shapes,
+     on an unaligned input and at Cin 512, A also at stride 2 (also with
+     ragged channel blocks), 1x1 and 7x7;
   4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
      a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
@@ -332,22 +332,26 @@ LAB_SHAPES = ((8, 32, 1024, 256), (8, 64, 512, 128))
 def chw_conv_cases():
     """(label, N, Cin, Cout, H, W, k, stride, variants): the lab's two
     shapes for all three variants; for A also a stride-2 conv through
-    space_to_depth, a 1x1 and a ragged shape; for C and D ragged
-    shapes: one wider than C's 256-lane tile, Cin no multiple of a
-    channel chunk (40; 200, whose weights are streamed), Cout 7, H no
-    multiple of a row tile, W no whole staging load (302), an input one
-    element into its storage ("unaligned": not 16-byte aligned), and Cin
-    512 (the longest sums, where a float32 error would grow most)."""
+    space_to_depth (four tap groups of 1, 2, 2 and 4 taps), the same with
+    Cin 5 (channel blocks no multiple of a chunk), a 1x1 and a 7x7 (49
+    taps in six groups, its whole pad on the top / left); ragged shapes:
+    one wider than C's 256-lane tile, Cin no multiple of a channel chunk
+    (40; 200, whose weights are streamed), Cout 7, H no multiple of a row
+    tile, W no whole staging load (302), an input one element into its
+    storage ("unaligned": not 16-byte aligned), and Cin 512 (the longest
+    sums, where a float32 error would grow most)."""
     cases = [(f"lab {c}ch", n, c, c, h, w, 3, 1, "ACD")
              for n, c, h, w in LAB_SHAPES]
     cases += [("stride 2", 8, 32, 64, 1024, 256, 3, 2, "A"),
+              ("stride 2 cin 5", 2, 5, 7, 66, 300, 3, 2, "A"),
               ("1x1", 4, 64, 32, 256, 128, 1, 1, "A"),
+              ("7x7", 1, 32, 32, 256, 256, 7, 1, "A"),
               ("ragged", 2, 26, 32, 33, 40, 3, 1, "ACD"),
               ("ragged wide", 2, 5, 7, 9, 300, 3, 1, "CD"),
-              ("ragged cin 40", 1, 40, 7, 13, 302, 3, 1, "CD"),
-              ("ragged cin 200", 2, 200, 7, 11, 300, 3, 1, "CD"),
-              ("unaligned", 2, 24, 20, 19, 64, 3, 1, "CD"),
-              ("deep cin 512", 1, 512, 32, 16, 64, 3, 1, "CD")]
+              ("ragged cin 40", 1, 40, 7, 13, 302, 3, 1, "ACD"),
+              ("ragged cin 200", 2, 200, 7, 11, 300, 3, 1, "ACD"),
+              ("unaligned", 2, 24, 20, 19, 64, 3, 1, "ACD"),
+              ("deep cin 512", 1, 512, 32, 16, 64, 3, 1, "ACD")]
     return cases
 
 
@@ -363,13 +367,15 @@ def phase_chw_convs(seed):
     Bound: the conv's USEFUL work, whatever computes it: FLOPs = 2 N H_out
     W_out Cout k k Cin over the f32 FFMA peak (f32) or the bf16
     tensor-core peak (bf16), bytes = input + output + weights + bias once;
-    the f32 lines of C and D, which multiply as three TF32 products
+    the f32 lines, whose kernels all multiply as three TF32 products
     (3xTF32), also give the bound at that rate (three times the FLOPs
     over the TF32 peak).
     Library yardstick (never called by the port's kernels' wrappers): one
     torch.nn.functional.conv2d with bias on the NCHW tensor, plus the
     activation, in contiguous and in channels_last memory format; the
-    faster of the two is reported and named."""
+    faster of the two is reported and named. It pads (k - 1) / 2 on each
+    side where A puts a 5x5's or 7x7's whole pad on the top / left: the
+    same work on shifted outputs."""
     from vocal_remover_tpu_torch.nn import (
         conv_chw,
         conv_chw_kernel,
@@ -464,7 +470,7 @@ def phase_chw_convs(seed):
                 }
                 rows.append(row)
                 tf32 = ""
-                if v in "CD" and dtype == torch.float32:
+                if dtype == torch.float32:
                     tf32 = (f"; 3xTF32 rate "
                             f"{max(t_bytes, 3e3 * flops / PEAK_TF32_FLOPS):.4f}"
                             " ms")

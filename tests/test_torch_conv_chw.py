@@ -164,6 +164,105 @@ def test_shapes_the_tpu_kernel_refuses_match_xla(k, padding, cin, cout, h, w,
     np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("k,cin,cout,h,w", [
+    (7, 3, 4, 12, 24),  # 49 taps, origin (6, 6)
+    (9, 2, 3, 11, 20),  # 81 taps, reach 8
+])
+def test_long_tap_tables_match_jax(k, cin, cout, h, w):
+    """Tables past 32 taps run as the JAX kernel runs them (no limit on
+    the table's length)."""
+    x, wk, b = _inputs(cin, cout, h, w, k=k, n=1, seed=k)
+    jw2, jtaps, jpad = jcp.prepare_weights_s1(wk)
+    ref = np.asarray(jcp.fused_conv_chw(jnp.asarray(x), jw2, b, jtaps, jpad,
+                                        act="relu", interpret=True))
+    w2, taps, pad = tcp.prepare_weights_s1(wk)
+    assert len(taps) == k * k and tcp.pad_origin(pad) == (k - 1, k - 1)
+    out = tcp.fused_conv_chw(torch.from_numpy(x), w2, b, taps, pad, act="relu")
+    assert out.shape == ref.shape == (1, cout, h, w)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
+
+
+def test_stride2_ragged_channel_block_matches_jax():
+    """Cin 5: the space-to-depth tensor holds four blocks of 5 channels,
+    so a chunk of any block must not read the next block's channels."""
+    x, wk, b = _inputs(5, 7, 18, 40, seed=11)
+    jw2, jtaps, jpad = jcp.prepare_weights_s2(wk)
+    ref = np.asarray(jcp.fused_conv_chw(
+        jcp.space_to_depth(jnp.asarray(x)), jw2, b, jtaps, jpad,
+        act="leaky_relu", interpret=True))
+    w2, taps, pad = tcp.prepare_weights_s2(wk)
+    xin = tcp.space_to_depth(torch.from_numpy(x))
+    assert xin.shape[1] == 20 and w2.shape[0] == 9 * 5
+    out = tcp.fused_conv_chw(xin, w2, b, taps, pad, act="leaky_relu")
+    assert out.shape == ref.shape == (2, 7, 9, 20)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_ATOL)
+
+
+def _tables():
+    """(label, taps, pad) of the tables the kernel is given: stride 1 at
+    1x1 to 11x11, the stride-2 remap, and a table with a repeated tap."""
+    out = []
+    for k in (1, 3, 5, 7, 11):
+        _, taps, pad = tcp.prepare_weights_s1(np.zeros((k, k, 1, 1)))
+        out.append((f"{k}x{k}", taps, pad))
+    _, taps, pad = tcp.prepare_weights_s2(np.zeros((3, 3, 1, 1)))
+    out.append(("stride 2", taps, pad))
+    out.append(("repeated", ((0, 1, 1), (0, 0, 2), (0, 1, 1)), (2, 2)))
+    return out
+
+
+@pytest.mark.parametrize("label,taps,pad", _tables(),
+                         ids=[t[0] for t in _tables()])
+def test_tap_groups_cover_the_table(label, taps, pad):
+    """Every tap lies in exactly one group, at its slot, inside the
+    group's rows and columns and the kernel's GROUP_ROWS x GROUP_COLS;
+    each group's weight slabs follow the previous group's; the records
+    give the same conv as the table (each slot's product summed at the
+    group's offset)."""
+    origin = tcp.pad_origin(pad)
+    groups = conv_chw_kernel.tap_groups(taps, origin)
+    rows, cols = conv_chw_kernel.GROUP_ROWS, conv_chw_kernel.GROUP_COLS
+    assert groups.dtype == np.int32
+    assert groups.shape[1] == conv_chw_kernel.GROUP_INTS
+    seen, slab = [], 0
+    for cblk, row0, col0, gh, gw, slab0, *rest in groups.tolist():
+        assert 1 <= gh <= rows and 1 <= gw <= cols
+        assert slab0 == slab
+        slab += gh * gw
+        slots = rest[:rows * cols]
+        assert not any(rest[rows * cols:])
+        for s, t in enumerate(slots):
+            if t < 0:
+                continue
+            sy, sx = divmod(s, cols)
+            assert sy < gh and sx < gw
+            assert taps[t] == (cblk, row0 + origin[0] + sy,
+                               col0 + origin[1] + sx)
+            seen.append(t)
+    assert sorted(seen) == list(range(len(taps)))
+    # the records' conv against the table's, on 2 channel blocks of 3
+    rng = np.random.default_rng(len(taps))
+    n_blk = 1 + max(t[0] for t in taps)
+    x = torch.from_numpy(rng.standard_normal((1, 3 * n_blk, 9, 13),
+                                             dtype=np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((3 * len(taps), 4),
+                                              dtype=np.float32))
+    b = torch.zeros(4)
+    ref = conv_chw_kernel.conv_call_plain(x, w2, b, taps, pad, origin, None,
+                                          torch.float32)
+    m = 12  # a margin past every reach
+    xp = torch.nn.functional.pad(x, (m, m, m, m))
+    got = torch.zeros_like(ref)
+    for cblk, row0, col0, _, _, _, *slots in groups.tolist():
+        for s, t in enumerate(slots[:rows * cols]):
+            if t >= 0:
+                sy, sx = divmod(s, cols)
+                r, c = m + row0 + sy, m + col0 + sx
+                xs = xp[:, 3 * cblk:3 * cblk + 3, r:r + 9, c:c + 13]
+                got += torch.einsum("nkhw,ko->nohw", xs, w2[3 * t:3 * t + 3])
+    torch.testing.assert_close(got, ref, atol=F32_ATOL, rtol=0)
+
+
 def test_out_dtype_f32_from_bf16_input():
     x, wk, b = _inputs(4, 6, 12, 40, seed=9)
     w2, taps, pad = tcp.prepare_weights_s1(wk)
@@ -228,7 +327,7 @@ def _call_args():
     (lambda a: a.__setitem__(2, a[2][:-1]), ValueError),
     (lambda a: a.__setitem__(3, ((0, 3, 0),) + a[3][1:]), ValueError),
     (lambda a: a.__setitem__(3, ((1, 0, 0),) + a[3][1:]), ValueError),
-    (lambda a: a.__setitem__(3, a[3] * 4), ValueError),
+    (lambda a: a.__setitem__(3, ()), ValueError),
     (lambda a: a.__setitem__(5, (3, 1)), ValueError),
 ])
 def test_conv_call_refuses_bad_operands(change, error):
@@ -260,32 +359,69 @@ def test_conv_call_rejects_non_contiguous_on_card(cuda_device):
         conv_chw_kernel.conv_call(*args)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2.0 ** -6)])
-@pytest.mark.parametrize("cin,cout,h,w,k,stride", [
-    (26, 32, 33, 40, 3, 1), (32, 32, 64, 256, 3, 1), (8, 16, 40, 128, 3, 2),
-    (16, 24, 20, 64, 1, 1), (6, 10, 17, 50, 5, 1), (5, 7, 9, 300, 3, 1),
-])
-def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, cin, cout, h, w,
-                                      k, stride):
+CARD_TOLS = [(torch.float32, torch.float32, 1e-4),
+             (torch.bfloat16, torch.bfloat16, 2.0 ** -6),
+             # bf16 in, f32 out: the exact f32 sum of the same products
+             (torch.bfloat16, torch.float32, 1e-4)]
+
+
+def _check_on_card(x, wk, b, stride, out_dtype, tol, unaligned=False):
     """The CUDA kernel against its plain version on the same device
-    tensors; bf16 is compared in the working type (one bf16 step at the
-    output's magnitude)."""
-    x, wk, b = _inputs(cin, cout, h, w, k=k, seed=5)
-    x = torch.from_numpy(x).to(cuda_device, dtype)
+    tensors; bf16 out is compared in the working type (one bf16 step at
+    the output's magnitude). `unaligned`: the kernel's input is a
+    contiguous view one element into its storage (not 16-byte aligned)."""
     if stride == 2:
         x = tcp.space_to_depth(x).contiguous()
         w2, taps, pad = tcp.prepare_weights_s2(wk)
     else:
         w2, taps, pad = tcp.prepare_weights_s1(wk)
-    args = (x, torch.from_numpy(w2).to(cuda_device, dtype),
-            torch.from_numpy(b).to(cuda_device), taps, pad,
-            tcp.pad_origin(pad), "leaky_relu", dtype)
+    if unaligned:
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        x = flat[1:].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    args = (x, torch.from_numpy(w2).to(x.device, x.dtype),
+            torch.from_numpy(b).to(x.device), taps, pad,
+            tcp.pad_origin(pad), "leaky_relu", out_dtype)
     before = conv_chw_kernel.launches
     out = conv_chw_kernel.conv_call(*args)
     torch.cuda.synchronize()
     assert conv_chw_kernel.launches == before + 1
     ref = conv_chw_kernel.conv_call_plain(*args)
+    assert out.dtype == ref.dtype == out_dtype
     scale = max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype,tol", CARD_TOLS)
+@pytest.mark.parametrize("cin,cout,h,w,k,stride", [
+    (26, 32, 33, 40, 3, 1), (32, 32, 64, 256, 3, 1), (8, 16, 40, 128, 3, 2),
+    (16, 24, 20, 64, 1, 1), (6, 10, 17, 50, 5, 1), (5, 7, 9, 300, 3, 1),
+    # reach past an 8-column halo: 7x7 (six tap groups) and 11x11 (twelve)
+    (6, 10, 17, 50, 7, 1), (3, 5, 21, 70, 11, 1),
+    # stride 2 with ragged channel blocks: four blocks of 5
+    (5, 7, 18, 40, 3, 2),
+    # Cin no multiple of a channel chunk (40, 200: weights streamed) or
+    # 512 (the longest sums), Cout 7 (under one m16 tile) and 32
+    (40, 7, 13, 70, 3, 1), (40, 32, 13, 70, 3, 1), (200, 7, 11, 70, 3, 1),
+    (200, 32, 11, 70, 3, 1), (512, 7, 16, 64, 3, 1), (512, 32, 16, 64, 3, 1),
+    # W no whole 16-byte chunk of bf16 (plain loads and stores)
+    (24, 20, 13, 302, 3, 1),
+])
+def test_kernel_matches_plain_on_card(cuda_device, dtype, out_dtype, tol, cin,
+                                      cout, h, w, k, stride):
+    x, wk, b = _inputs(cin, cout, h, w, k=k, seed=5)
+    _check_on_card(torch.from_numpy(x).to(cuda_device, dtype), wk, b, stride,
+                   out_dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype,tol", CARD_TOLS)
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (7, 1)])
+def test_kernel_takes_an_unaligned_input_on_card(cuda_device, dtype,
+                                                 out_dtype, tol, k, stride):
+    """An input that is not 16-byte aligned takes the kernel's plain-load
+    staging."""
+    x, wk, b = _inputs(24, 20, 20, 64, k=k, seed=6)
+    _check_on_card(torch.from_numpy(x).to(cuda_device, dtype), wk, b, stride,
+                   out_dtype, tol, unaligned=True)

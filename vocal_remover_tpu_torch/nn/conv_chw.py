@@ -4,7 +4,10 @@ Counterpart of vocal_remover_tpu/nn/conv_pallas.py: the same public
 functions with the same layouts. `fused_conv_chw` computes
 act(w2^T . im2col(x) + b) with K = taps x cin_blk over a static tap table
 `(channel_block, dy, dx)`; the product itself is the hand-written kernel
-behind `conv_chw_kernel.conv_call`.
+behind `conv_chw_kernel.conv_call` (csrc/conv_chw.cu: tensor-core products
+over the taps, cut into groups that each read one staged input box; the
+im2col matrix is never built). A table of any length runs, as in the JAX
+package.
 
   * stride 1: `prepare_weights_s1` (any kh x kw) gives the taps of one
     channel block and `pad = (kh - 1, kw - 1)`. As in the JAX package, a

@@ -2,10 +2,11 @@
 its plain version.
 
 Counterpart of vocal_remover_tpu/nn/conv_pallas.py `_conv_call`. The
-kernel is csrc/conv_chw.cu (see its header for the design and what bounds
-it). `conv_call` launches it for CUDA tensors and takes the plain PyTorch
-version `conv_call_plain` only for CPU tensors; on a CUDA tensor it
-launches the kernel or raises.
+kernel is csrc/conv_chw.cu (tensor-core products on a channel-innermost
+staged box, one box a group of taps; see its header for the design and
+what bounds it). `conv_call` launches it for CUDA tensors and takes the
+plain PyTorch version `conv_call_plain` only for CPU tensors; on a CUDA
+tensor it launches the kernel or raises.
 
 Operands: `x` (N, C_total, H, W) float32 or bfloat16, `w2` (taps *
 cin_blk, Cout) in x's dtype with rows ordered [tap][ci], `b` (Cout,)
@@ -14,13 +15,17 @@ reach `pad_hw` and how much of it lies above / left of the image
 (`origin`). One difference from the TPU kernel: `x` is the UNPADDED
 tensor. Output pixel (i, j) reads, for tap (cblk, dy, dx), input pixel
 (i + dy - origin[0], j + dx - origin[1]) of channels cblk * cin_blk ...,
-and pixels outside the image are zero.
+and pixels outside the image are zero. The table may hold any number of
+taps of any reach: the kernel runs it as `tap_groups`, each group one
+staged box of at most GROUP_ROWS x GROUP_COLS taps of one channel block.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from vocal_remover_tpu_torch import build
@@ -29,7 +34,9 @@ from vocal_remover_tpu_torch import build
 # are not counted)
 launches = 0
 
-MAX_TAPS = 32
+# what a group of taps may span and the ints of its record; they must equal
+# kGH, kGW and kRec in csrc/conv_chw.cu (the wrapper checks at load)
+GROUP_ROWS, GROUP_COLS, GROUP_INTS = 3, 4, 20
 ACTS = {None: 0, "none": 0, "identity": 0, "relu": 1, "leaky_relu": 2}
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -79,9 +86,8 @@ def _check(x, w2, b, taps, pad_hw, origin, act, out_dtype):
     """Validate the operands; -> (cin_blk, cout)."""
     cout = check_operands(x, w2, b, act, out_dtype)
     taps = tuple(taps)
-    if not 1 <= len(taps) <= MAX_TAPS:
-        raise ValueError(f"the tap table holds {len(taps)} taps; the kernel "
-                         f"takes 1 to {MAX_TAPS}")
+    if not taps:
+        raise ValueError("the tap table is empty")
     if w2.shape[0] % len(taps):
         raise ValueError(f"w2 has {w2.shape[0]} rows: no multiple of "
                          f"{len(taps)} taps")
@@ -100,6 +106,54 @@ def _check(x, w2, b, taps, pad_hw, origin, act, out_dtype):
                              f"{c_total // cin_blk} channel block(s) and the "
                              f"pad {pad_hw}")
     return cin_blk, cout
+
+
+def tap_groups(taps, origin):
+    """The kernel's cut of a tap table into groups -> int32 array
+    (n_groups, GROUP_INTS).
+
+    A group holds taps of one channel block whose dy lie in a band of
+    GROUP_ROWS rows from the smallest dy left and whose dx lie in a band
+    of GROUP_COLS columns from the smallest dx left in that band, each at
+    its slot (dy - dy0, dx - dx0); a repeated tap goes to a later group.
+    Record: channel block, dy0 - origin[0], dx0 - origin[1], rows gh and
+    columns gw of taps, the group's first weight slab (the groups' gh x gw
+    slabs lie one after another), then the table index of the tap at each
+    slot (row-major over GROUP_COLS, -1 for none), zero-padded. Output
+    pixel (i, j) of the group's slot (sy, sx) reads input pixel
+    (i + dy0 - origin[0] + sy, j + dx0 - origin[1] + sx)."""
+    (pt, pl), rows, slab0 = origin, [], 0
+    left = list(enumerate(tuple(t) for t in taps))
+    while left:
+        cblk = left[0][1][0]
+        mine = [(i, dy, dx) for i, (c, dy, dx) in left if c == cblk]
+        dy0 = min(dy for _, dy, _ in mine)
+        band = [m for m in mine if m[1] < dy0 + GROUP_ROWS]
+        dx0 = min(dx for _, _, dx in band)
+        slots = [-1] * (GROUP_ROWS * GROUP_COLS)
+        for i, dy, dx in band:
+            s = (dy - dy0) * GROUP_COLS + dx - dx0
+            if dx < dx0 + GROUP_COLS and slots[s] < 0:
+                slots[s] = i
+        taken = [s for s in range(len(slots)) if slots[s] >= 0]
+        gh = max(s // GROUP_COLS for s in taken) + 1
+        gw = max(s % GROUP_COLS for s in taken) + 1
+        rows.append([cblk, dy0 - pt, dx0 - pl, gh, gw, slab0, *slots])
+        slab0 += gh * gw
+        done = {slots[s] for s in taken}
+        left = [m for m in left if m[0] not in done]
+    table = np.zeros((len(rows), GROUP_INTS), np.int32)
+    table[:, :len(rows[0])] = rows
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def _group_table(taps, origin, device):
+    """-> (`tap_groups` on `device`, its weight slabs a channel chunk),
+    made once per table."""
+    table = tap_groups(taps, origin)
+    return (torch.from_numpy(table).to(device),
+            int((table[:, 3] * table[:, 4]).sum()))
 
 
 def conv_call_plain(x, w2, b, taps, pad_hw, origin, act, out_dtype):
@@ -135,15 +189,16 @@ def conv_call(x, w2, b, taps, pad_hw, origin, act, out_dtype):
     if out.numel() == 0:
         return out
     lib = _lib()
-    table = (ctypes.c_int * (3 * len(taps)))(*(v for t in taps for v in t))
+    groups, n_slabs = _group_table(tuple(tuple(t) for t in taps),
+                                   tuple(origin), x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv_chw(
             x.data_ptr(), w2.data_ptr(), b.data_ptr(), out.data_ptr(),
-            n, c_total, h, w, cout, cin_blk, len(taps), table,
-            pad_hw[0], pad_hw[1], origin[0], origin[1], ACTS[act],
-            int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+            groups.data_ptr(), n, c_total, h, w, cout, cin_blk, len(taps),
+            groups.shape[0], n_slabs, ACTS[act],
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            stream)
     if err != 0:
         raise RuntimeError(f"conv_chw launch failed: CUDA error {err}")
     launches += 1
@@ -153,9 +208,12 @@ def conv_call(x, w2, b, taps, pad_hw, origin, act, out_dtype):
 def _lib() -> ctypes.CDLL:
     lib = build.load("conv_chw")
     if lib.conv_chw.argtypes is None:
+        if (lib.conv_chw_group_rows(), lib.conv_chw_group_cols(),
+                lib.conv_chw_group_ints()) != (GROUP_ROWS, GROUP_COLS,
+                                               GROUP_INTS):
+            raise RuntimeError("conv_chw.cu and conv_chw_kernel.py disagree "
+                               "on the tap groups' records")
         lib.conv_chw.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7
-            + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.conv_chw.restype = ctypes.c_int
     return lib

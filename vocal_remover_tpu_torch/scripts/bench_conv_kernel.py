@@ -4,7 +4,8 @@ on one NVIDIA card.
 Counterpart of scripts/bench_conv_kernel.py. Runs a chain of `--len`
 identical conv + bias + leaky_relu layers for each implementation and
 prints ms/conv, GB/s (input + output once) and TF/s:
-  kernel     nn/conv_chw.py `fused_conv_chw` (csrc/conv_chw.cu, variant A)
+  kernel     nn/conv_chw.py `fused_conv_chw` (csrc/conv_chw.cu, variant A:
+             tap groups on the tensor cores, mma.sync; 3xTF32 in float32)
   lib_nhwc   torch.nn.functional.conv2d on channels_last tensors
   lib_nchw   torch.nn.functional.conv2d on contiguous NCHW tensors
   lib_taps   nine shifted (M, Cin) @ (Cin, Cout) products in NHWC

@@ -4,9 +4,12 @@ side by side on one NVIDIA card.
 Counterpart of scripts/conv_kernel_lab.py. All candidates compute the
 same fused 3x3 stride-1 'SAME' conv + bias + leaky_relu in (N, C, H, W)
 layout and differ in where the tap shifts happen:
-  A  staged im2col indexing: the input patch of an output tile sits in
-     shared memory and the K = 9*Cin loop indexes it at each tap's
-     (dy, dx) (nn/conv_chw.py `fused_conv_chw`, csrc/conv_chw.cu).
+  A  tap groups: D's design on a tap table of any length (any kernel
+     size, stride 2 through space_to_depth); the taps are cut into groups
+     of one channel block and at most 3 x 4 (dy, dx), each group's box
+     staged channel-innermost once a step and read at each tap's offset
+     by tensor-core products (mma.sync; 3xTF32 in float32)
+     (nn/conv_chw.py `fused_conv_chw`, csrc/conv_chw.cu).
   C  output-shift: the unshifted dy-stack of the input is staged once and
      each staged column meets the weights of all three dx, in three
      tensor-core products (mma.sync; 3xTF32 in float32); the three partial
@@ -164,7 +167,7 @@ def main(argv=None):
         if "A" in args.variants:
             w2a, taps, pad = prepare_weights_s1(wk)
             w2a = torch.from_numpy(w2a).to(device, dt)
-            variants["A staged im2col"] = lambda y: fused_conv_chw(
+            variants["A tap groups"] = lambda y: fused_conv_chw(
                 y, w2a, bias, taps, pad, act="leaky_relu", out_dtype=dt)
         if "C" in args.variants:
             w2c = weights_c(wk, dt).to(device)
