@@ -15,7 +15,9 @@ Phases (each prints a line; any failure exits non-zero):
      ratio to the library time; A, C and D in f32 also the bound at the
      3xTF32 rate): the BiLSTM recurrence (also at H = 256, its wide
      path), and the flat conv at all four layers of stg3_full_band_net and of
-     stg1_high_band_net in f32 and bf16, plus ragged cases; the three
+     stg1_high_band_net in f32 and bf16, both at directory mode's
+     shapes too (crop 1024, batch 24: T = 512, 2N = 48; enc2 of
+     stg3_full_band_net at N = 24, W = 1024 / 512), plus ragged cases; the three
      channel-major conv kernels (variant A = conv_chw, C = conv_shift,
      D = conv_tapdot) at the conv kernel lab's shapes, (8, 32, 1024, 256)
      and (8, 64, 512, 128), in f32 and bf16, all three at ragged shapes,
@@ -39,7 +41,19 @@ Phases (each prints a line; any failure exits non-zero):
   5. reference: a 4 s song through the CLI on the card and on the CPU
      (plain versions of both kernels), plain and --flat_conv: stems
      within 1 LSB;
-  6. lab path: the port's two conv tools at their default shapes and dtype
+  6. directory mode ([dir]): 10 songs (8 x 60 s, 45 s, 95 s: one group of
+     8 and two songs alone) through --input_dir at its defaults (bf16,
+     crop 1024, batch 24, group 8) first, warm and under torch.profiler
+     (busy share, top kernels), then with --flat_conv and with --precision
+     highest: launch counts, stems and residual of every song, peak device
+     memory, xRT and songs/s; every song against the same song
+     through Separator.separate_wave (1 LSB in highest, the SNR floor in
+     bf16); the same songs one by one through the single-file bf16 path;
+  7. streaming ([stream]): a 150 s song with -i --stream in highest
+     against the monolithic --exact_length stems (1 LSB), the same with
+     --tta, --stream --postprocess and --stream in bf16, each with its
+     launch counts, residual and xRT;
+  8. lab path: the port's two conv tools at their default shapes and dtype
      (scripts/conv_kernel_lab.py: variants A, C, D chained and checked
      against conv2d; scripts/bench_conv_kernel.py: variant A against the
      library's routes), with every launch count set to 0 before and held
@@ -66,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave as wav_io
 
 import numpy as np
 import torch
@@ -160,9 +175,11 @@ def recurrence_cases():
     """(T, 2N, H, input size) of the main path's launches, flagship at
     crop 256 and batch 4: T = crop / 2, 2N = 2 directions x 4 patches;
     H = 64 (low and full nets; input 256 / 512 bins), 32 (high nets);
-    plus cases the main path does not make: a ragged one, and H = 256
-    (a checkpoint with nout_lstm = 512: the kernel's wide path)."""
+    directory mode's, at crop 1024 and batch 24: T = 512, 2N = 48; plus
+    cases no path makes: a ragged one, and H = 256 (a checkpoint with
+    nout_lstm = 512: the kernel's wide path)."""
     return [(128, 8, 64, 256), (128, 8, 32, 256), (128, 8, 64, 512),
+            (512, 48, 64, 512), (512, 48, 32, 256),
             (37, 10, 32, 48), (128, 8, 256, 512)]
 
 
@@ -216,9 +233,10 @@ def flat_conv_cases():
     launches on the --flat_conv path, flagship at crop 256 and batch 4:
     the four layers of stg3_full_band_net (F = 1024, c1 = 32, p1 = 4: the
     widest) and of stg1_high_band_net (F = 512, c1 = 8, p1 = 16: the most
-    packed); then cases the main path does not make: a 1x1 whose row
-    count is no multiple of the kernel's 64-row tile, and a stride-2 conv
-    with ragged lanes (L = 120, NL = 120)."""
+    packed); enc2 of stg3_full_band_net at directory mode's crop 1024 and
+    batch 24; then cases no path makes: a 1x1 whose row count is no
+    multiple of the kernel's 64-row tile, and a stride-2 conv with ragged
+    lanes (L = 120, NL = 120)."""
     cases = []
     for net, bins, c1, p1 in (("stg3_full", 1024, 32, 4),
                               ("stg1_high", 512, 8, 16)):
@@ -231,6 +249,10 @@ def flat_conv_cases():
             (f"{net} enc3_conv2", 4, bins // 4, 64, 4 * c1, 4 * c1, 3, 1,
              p1 // 4),
         ]
+    # directory mode (crop 1024, batch 24): stg3_full_band_net's enc2,
+    # whose stride-2 conv reads the full 1024-frame width
+    cases += [("dir stg3_full enc2_conv1", 24, 1024, 1024, 32, 64, 3, 2, 2),
+              ("dir stg3_full enc2_conv2", 24, 512, 512, 64, 64, 3, 1, 2)]
     cases += [("ragged 1x1", 3, 21, 96, 32, 48, 1, 1, 4),
               ("ragged s2", 2, 10, 48, 20, 40, 3, 2, 3)]
     return cases
@@ -546,6 +568,21 @@ def synth_song(seconds: float, seed: int) -> np.ndarray:
     return np.stack([left, right]).astype(np.float32)
 
 
+def kernel_summary(kernels):
+    """(device busy us: the union of the kernels' intervals, {kernel name:
+    (us, launches)})."""
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted((k.time_range.start, k.time_range.end)
+                             for k in kernels):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    by_name = {}
+    for k in kernels:
+        t, n = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (t + k.time_range.elapsed_us(), n + 1)
+    return busy, by_name
+
+
 def device_kernels(prof):
     """The device kernels of a torch.profiler run (CPU ops and the
     profiler's own buffer activities also carry device time)."""
@@ -575,14 +612,33 @@ def run_cli(argv, counters):
 
 
 def read_stems(out_dir, name):
+    """A song's two stems as int32 PCM16 values, checked to be 16-bit
+    PCM at SR."""
     from vocal_remover_tpu_torch.utils import audio
 
     stems = []
     for stem in ("Instruments", "Vocals"):
-        w, sr = audio.read_wav(os.path.join(out_dir, f"{name}_{stem}.wav"))
+        path = os.path.join(out_dir, f"{name}_{stem}.wav")
+        with wav_io.open(path, "rb") as f:
+            check(f.getsampwidth() == 2, f"{path}: {8 * f.getsampwidth()}"
+                                         "-bit samples, want 16")
+        w, sr = audio.read_wav(path)
         check(sr == SR, f"{stem}: sample rate {sr}")
         stems.append(np.round(w * 32768.0).astype(np.int32))
     return stems
+
+
+def read_mix(path):
+    from vocal_remover_tpu_torch.utils import audio
+
+    return np.round(audio.read_wav(path)[0] * 32768.0).astype(np.int32)
+
+
+def residual_lsb(y, v, mix) -> int:
+    """|Instruments + Vocals - mixture| on the samples the iSTFT covers
+    (hop * (length // hop))."""
+    n_cov = 1024 * (mix.shape[-1] // 1024)
+    return int(np.abs(y + v - mix)[:, :n_cov].max())
 
 
 def snr_db(ref, test) -> float:
@@ -755,6 +811,247 @@ def phase_reference(tmp, ckpt, seed):
               f"the kernels): max {diff} LSB (tol 1)", flush=True)
 
 
+# directory mode: eight 60 s songs (one full group of 8 at the CLI's
+# defaults) and a 45 s and a 95 s song (30 s buckets of 60 and 120 s:
+# each runs alone)
+DIR_SECONDS = (60,) * 8 + (45, 95)
+DIR_BATCHES = (tuple(range(8)), (8,), (9,))  # the service's dispatches
+DIR_CROP, DIR_BATCH = 1024, 24  # the CLI's directory-mode defaults
+
+
+def patch_count(n_samples: int, crop: int, extra: int = 0) -> int:
+    """Patches of a song of n_samples at `crop` (flagship STFT, offset
+    64), its padding widened by `extra` frames a side (TTA's shift)."""
+    from vocal_remover_tpu_torch.ops import stft as stft_ops
+    from vocal_remover_tpu_torch.ops.windowing import make_padding, num_patches
+
+    n_frame = stft_ops.num_frames(n_samples, 2048, 1024)
+    pad_l, pad_r, roi = make_padding(n_frame, crop, 64)
+    return num_patches(pad_l + n_frame + pad_r + 2 * extra, roi, 64)
+
+
+def alone_stems(ckpt, precision, paths, crop, batch):
+    """Each song through `Separator.separate_wave` (30 s bucket), built as
+    the CLI builds its model; vocals as the directory mode makes them,
+    clip(mixture - instruments). -> [(instruments, vocals)] a song."""
+    from vocal_remover_tpu_torch.models import convert, serving
+    from vocal_remover_tpu_torch.separate.separator import Separator
+    from vocal_remover_tpu_torch.utils import audio
+
+    model = convert.load_model(ckpt, 2048, 1024)
+    if precision == "bfloat16":
+        model = serving.serving_variables(model, "bfloat16")
+    sp = Separator(model, batchsize=batch, cropsize=crop, device="cuda",
+                   precision=precision)
+    stems = []
+    for path in paths:
+        y, _ = sp.separate_wave(audio.load(path, sr=SR)[0], pcm16_io=True,
+                                bucket=30 * SR, only_instruments=True)
+        y = y.astype(np.int32)
+        stems.append((y, np.clip(read_mix(path) - y, -32768, 32767)))
+    return stems
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output kept off the log; -> (result,
+    the CLI's stage lines as one string)."""
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        result = fn(*args)
+    stages = [line.strip() for line in said.getvalue().splitlines()
+              if line.startswith("  ")]
+    return result, "; ".join(stages)
+
+
+def phase_dir(tmp, ckpt, seed, counters, per_chunk):
+    """Directory mode through the CLI at its defaults (bf16, crop 1024,
+    batch 24, group 8): first, warm and profiled; then with --flat_conv
+    and with --precision highest. Every run's launch counts, stems and
+    residual are checked; every song against the same song alone;
+    the same songs one by one through the single-file bf16 path beside
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vocal_remover_tpu_torch.cli import inference as cli
+    from vocal_remover_tpu_torch.utils import audio
+
+    song_dir = os.path.join(tmp, "songs")
+    os.makedirs(song_dir)
+    names = [f"song{i:02d}" for i in range(len(DIR_SECONDS))]
+    paths = [os.path.join(song_dir, f"{n}.wav") for n in names]
+    for i, (path, sec) in enumerate(zip(paths, DIR_SECONDS)):
+        audio.write_wav(path, synth_song(sec, seed + 10 + i), SR)
+    mixes = [read_mix(path) for path in paths]
+    total_s = sum(m.shape[-1] for m in mixes) / SR
+    bucket = 30 * SR
+    padded = [-(-m.shape[-1] // bucket) * bucket for m in mixes]
+    chunks = sum(-(-len(b) * patch_count(padded[b[0]], DIR_CROP) // DIR_BATCH)
+                 for b in DIR_BATCHES)
+    print(f"[dir] {len(paths)} songs, {total_s:.0f} s of audio "
+          f"({'/'.join(str(s) for s in DIR_SECONDS)} s); directory defaults "
+          f"crop {DIR_CROP}, batch {DIR_BATCH}, group 8: dispatches "
+          f"{[len(b) for b in DIR_BATCHES]} songs, {chunks} chunks",
+          flush=True)
+
+    def run(label, flags, kernels):
+        out_dir = os.path.join(tmp, f"dir-{label}")
+        argv = ["-P", ckpt, "--input_dir", song_dir, "-o", out_dir] + flags
+        torch.cuda.reset_peak_memory_stats()
+        (wall, launches), stages = quiet(run_cli, argv, counters)
+        peak = torch.cuda.max_memory_allocated()
+        for k, n in launches.items():
+            want = per_chunk[k] * chunks if k in kernels else 0
+            check(n == want, f"dir {label}: {k} launched {n} times, want "
+                             f"{want} ({chunks} chunks)")
+        worst = 0
+        for name, mix in zip(names, mixes):
+            y, v = read_stems(out_dir, name)
+            check(y.shape == v.shape == mix.shape,
+                  f"dir {label} {name}: stem shape {y.shape} vs {mix.shape}")
+            worst = max(worst, residual_lsb(y, v, mix))
+        check(worst <= 2, f"dir {label}: |Instruments + Vocals - mixture| "
+                          f"= {worst} LSB > 2")
+        print(f"[dir] {label}: {wall:.3f} s wall, {total_s / wall:.2f} x real "
+              f"time, {len(paths) / wall:.3f} songs/s, launches {launches}, "
+              f"peak device memory {peak / 2**30:.2f} GiB, residual <= "
+              f"{worst} LSB on every song; CLI stages: {stages}", flush=True)
+        return out_dir, wall
+
+    def profiled(label, flags, kernels):
+        """One more warm run under torch.profiler: busy share, top
+        kernels."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = run(f"{label} profiled", flags, kernels)
+        busy, by_name = kernel_summary(device_kernels(prof))
+        total = sum(t for t, _ in by_name.values())
+        n_kernels = sum(n for _, n in by_name.values())
+        print(f"[dir] {label} profiled: {n_kernels} kernel launches, kernel "
+              f"time {total / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+              f"= {100 * busy / 1e6 / wall:.1f}% of the {wall:.3f} s wall",
+              flush=True)
+        for kname, (t, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+            print(f"[dir]   {t / 1e3:9.2f} ms {n:6d}x  {kname[:100]}",
+                  flush=True)
+        del prof, by_name
+        gc.collect()  # the trace, outside the next run's timings
+
+    rec = ("lstm_recurrence",)
+    run("bf16 first", [], rec)
+    bf16_dir, wall = run("bf16 warm", [], rec)
+    profiled("bf16", [], rec)
+    run("flat bf16", ["--flat_conv"], ("lstm_recurrence", "flat_conv"))
+    highest_dir, _ = run("highest", ["--precision", "highest"], rec)
+    profiled("highest", ["--precision", "highest"], rec)
+
+    # songs 0-7 ran as one group of 8, 8 and 9 alone: each against the
+    # same song alone
+    for precision, out_dir in (("bfloat16", bf16_dir), ("highest", highest_dir)):
+        alone = alone_stems(ckpt, precision, paths, DIR_CROP, DIR_BATCH)
+        diff, snr = 0, [np.inf, np.inf]
+        for name, ref in zip(names, alone):
+            grouped = read_stems(out_dir, name)
+            d = max(int(np.abs(a - b).max()) for a, b in zip(grouped, ref))
+            song_snr = [snr_db(a, b) for a, b in zip(ref, grouped)]
+            if precision == "highest":
+                check(d <= 1, f"dir highest {name}: grouped vs alone {d} LSB "
+                              "> 1")
+            else:
+                check(min(song_snr) >= BF16_SNR_FLOOR_DB, f"dir bf16 {name}: "
+                      f"grouped vs alone SNR {song_snr} dB, floor "
+                      f"{BF16_SNR_FLOOR_DB}")
+            diff, snr = max(diff, d), [min(a, b) for a, b in zip(snr, song_snr)]
+        print(f"[dir] {precision}: all {len(names)} songs from the directory "
+              "run vs the same song alone (Separator.separate_wave, same "
+              f"crop, batch, precision): max {diff} LSB, least SNR "
+              f"Instruments {snr[0]:.2f} dB, Vocals {snr[1]:.2f} dB",
+              flush=True)
+
+    # beside it: the same songs one by one through the single-file path
+    out_dir = os.path.join(tmp, "dir-single")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for path in paths:
+        quiet(cli.main, ["-P", ckpt, "-i", path, "-o", out_dir,
+                         "--precision", "bfloat16"])
+    torch.cuda.synchronize()
+    single = time.perf_counter() - t0
+    print(f"[dir] the same {len(paths)} songs one by one through the "
+          f"single-file bf16 path (crop 256, batch 4): {single:.3f} s wall, "
+          f"{total_s / single:.2f} x real time, {len(paths) / single:.3f} "
+          f"songs/s; directory mode warm {single / wall:.2f}x faster",
+          flush=True)
+
+
+STREAM_SECONDS = 150  # two streamed segments plus a tail
+
+
+def phase_stream(tmp, ckpt, seed, counters, per_chunk):
+    """`-i --stream` on a 150 s song against the monolithic path with
+    --exact_length (highest, with and without TTA), then --postprocess
+    and bf16, each with its launch counts, residual and xRT."""
+    from vocal_remover_tpu_torch.ops import stft as stft_ops
+    from vocal_remover_tpu_torch.utils import audio
+
+    song = os.path.join(tmp, "long.wav")
+    audio.write_wav(song, synth_song(STREAM_SECONDS, seed + 3), SR)
+    mix = read_mix(song)
+    n = mix.shape[-1]
+    # the CLI's batch 4: K = 34 owned patches a segment, 36 with the halo
+    k_own, roi = 34, 128
+    n_frame = stft_ops.num_frames(n, 2048, 1024)
+    n_seg = -(-(-(-n_frame // roi) * roi) // (k_own * roi))
+    seg_chunks = n_seg * (k_own + 2) // 4
+    mono = {False: -(-patch_count(n, 256) // 4),
+            True: -(-patch_count(n, 256) // 4)
+            + -(-patch_count(n, 256, roi // 2) // 4)}
+    natural = 1024 * (n_frame - 1)
+    runs = [("stream", ["--stream"], seg_chunks),
+            ("mono", ["--exact_length"], mono[False]),
+            ("stream tta", ["--stream", "--tta"], 2 * seg_chunks),
+            ("mono tta", ["--tta", "--exact_length"], mono[True]),
+            # the model runs in the mask phase only
+            ("stream postprocess", ["--stream", "--postprocess"], seg_chunks),
+            ("stream bf16", ["--stream", "--precision", "bfloat16"],
+             seg_chunks)]
+    print(f"[stream] {STREAM_SECONDS} s song: {n_seg} segments of "
+          f"{k_own + 2} patches ({seg_chunks} chunks of 4)", flush=True)
+    stems = {}
+    for label, flags, chunks in runs:
+        out_dir = os.path.join(tmp, label.replace(" ", "-"))
+        (wall, launches), stages = quiet(
+            run_cli, ["-P", ckpt, "-i", song, "-o", out_dir] + flags, counters)
+        for k, got in launches.items():
+            want = per_chunk[k] * chunks if k == "lstm_recurrence" else 0
+            check(got == want, f"stream {label}: {k} launched {got} times, "
+                               f"want {want} ({chunks} chunks)")
+        y, v = stems[label] = read_stems(out_dir, "long")
+        check(y.shape == v.shape == mix.shape,
+              f"stream {label}: stem shape {y.shape}")
+        resid = residual_lsb(y, v, mix)
+        check(resid <= 2, f"stream {label}: |Instruments + Vocals - "
+                          f"mixture| = {resid} LSB > 2")
+        line = (f"[stream] {label}: {wall:.3f} s wall, "
+                f"{STREAM_SECONDS / wall:.2f} x real time, launches "
+                f"{launches}, residual {resid} LSB; CLI stages: {stages}")
+        if label.startswith("mono"):
+            # the streamed vocals past the iSTFT's natural length are the
+            # mixture (vocals by residual), the monolithic path's zeros
+            y_s, v_s = stems[label.replace("mono", "stream")]
+            diff = max(int(np.abs(y - y_s).max()),
+                       int(np.abs(v - v_s)[:, :natural].max()))
+            check(diff <= 1, f"stream vs {label}: {diff} LSB > 1")
+            line += f"; streamed stems vs this: max {diff} LSB (tol 1)"
+        if label == "stream bf16":
+            snr = [snr_db(a, b) for a, b in zip(stems["stream"], (y, v))]
+            check(min(snr) >= BF16_SNR_FLOOR_DB, f"stream bf16: SNR {snr} "
+                  f"dB against highest, floor {BF16_SNR_FLOOR_DB}")
+            line += (f"; SNR vs highest: Instruments {snr[0]:.2f} dB, "
+                     f"Vocals {snr[1]:.2f} dB")
+        print(line, flush=True)
+
+
+
 def phase_profile(ckpt, seed):
     """Device time by kernel name for one warm 60 s separation on each
     path."""
@@ -785,15 +1082,7 @@ def phase_profile(ckpt, seed):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = device_kernels(prof)
-        busy, last = 0.0, float("-inf")
-        for s, e in sorted((k.time_range.start, k.time_range.end)
-                           for k in kernels):
-            busy += max(0.0, e - max(s, last))
-            last = max(last, e)
-        by_name = {}
-        for k in kernels:
-            t, n = by_name.get(k.name, (0.0, 0))
-            by_name[k.name] = (t + k.time_range.elapsed_us(), n + 1)
+        busy, by_name = kernel_summary(kernels)
         total = sum(t for t, _ in by_name.values())
         print(f"[profile] {path}: warm 60 s separation {wall_off:.3f} s wall "
               f"with the profiler off, {wall:.3f} s with it on, "
@@ -886,10 +1175,11 @@ def main():
     chw_rows = phase_chw_convs(args.seed)
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, results = phase_main_path(
-            tmp, args.seed, counters,
-            {k["name"]: k["per_chunk"] for k in kernels})
+        per_chunk = {k["name"]: k["per_chunk"] for k in kernels}
+        ckpt, results = phase_main_path(tmp, args.seed, counters, per_chunk)
         phase_reference(tmp, ckpt, args.seed)
+        phase_dir(tmp, ckpt, args.seed, counters, per_chunk)
+        phase_stream(tmp, ckpt, args.seed, counters, per_chunk)
         if args.profile:
             phase_profile(ckpt, args.seed)
     lab_launches = phase_lab(counters)

@@ -20,6 +20,8 @@ from vocal_remover_tpu_torch.models import serving as tserving
 from vocal_remover_tpu_torch.models.cascaded import CascadedNet
 from vocal_remover_tpu_torch.nn import config as tconfig
 from vocal_remover_tpu_torch.separate.separator import Separator
+from vocal_remover_tpu_torch.separate.service import SeparatorService
+from vocal_remover_tpu_torch.separate.streaming import StreamingSeparator
 from vocal_remover_tpu_torch.utils import audio
 
 from torch_port_helpers import perturb_bn, synth_song
@@ -152,9 +154,6 @@ def test_separator_takes_its_precision(pair):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--input_dir", "songs"], "slice 2b"),
-    (["-i", "x.wav", "--stream"], "slice 2b"),
-    (["-i", "x.wav", "--group", "8"], "slice 2b"),
     (["-i", "x.wav", "--postprocess"], "later slice"),
     (["-i", "x.wav", "--output_image"], "later slice"),
     (["-i", "x.wav", "--data_parallel", "2"], "parallelism slice"),
@@ -190,4 +189,14 @@ def test_no_silent_cpu_fallback(pair, tmp_path, monkeypatch):
         cli.main(["-P", ckpt, "-i", song, "-r", "8000", "-f", "256",
                   "-H", "128", "-o", str(tmp_path), "--flat_conv",
                   "--precision", "bfloat16"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-P", ckpt, "-i", song, "-r", "8000", "-f", "256",
+                  "-H", "128", "-o", str(tmp_path), "--stream"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-P", ckpt, "--input_dir", str(tmp_path), "-r", "8000",
+                  "-f", "256", "-H", "128", "-o", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingSeparator(tmod)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SeparatorService(Separator(tmod))
     assert not os.path.exists(tmp_path / "song_Instruments.wav")

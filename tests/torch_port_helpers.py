@@ -33,3 +33,23 @@ def synth_song(sr=8000, seconds=3.0):
     right = 0.5 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.random.default_rng(
         3).standard_normal(len(t))
     return np.stack([left, right]).astype(np.float32)
+
+
+def small_pair(seed=7):
+    """The JAX CascadedNet(256, 128, 8, 16), its variables with perturbed
+    BN, and the port's model holding the same weights."""
+    import jax
+
+    from vocal_remover_tpu.models.cascaded import CascadedNet as JCascadedNet
+    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+
+    jmod = JCascadedNet(256, 128, 8, 16)
+    v = perturb_bn(jmod.init(jax.random.PRNGKey(seed)),
+                   np.random.default_rng(seed))
+    return jmod, v, convert.from_jax_variables(CascadedNet(256, 128, 8, 16), v)
+
+
+def max_lsb(a, b):
+    """Largest difference of two int16 stems, in PCM16 LSB."""
+    return int(np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32)).max())

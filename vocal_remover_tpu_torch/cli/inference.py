@@ -1,10 +1,20 @@
-"""Single-song separation CLI on the GPU port.
+"""Separation CLI on the GPU port.
 
     python -m vocal_remover_tpu_torch.cli.inference -P ckpt.vrt.npz -i song.wav
+    python -m vocal_remover_tpu_torch.cli.inference -P ckpt.vrt.npz --input_dir DIR
 
-Flag-compatible with vocal_remover_tpu/cli/inference.py for the
-single-file device path: STFT -> CascadedNet masks -> iSTFT, PCM16 out,
-song lengths padded to 30 s buckets (--exact_length turns that off).
+Flag-compatible with vocal_remover_tpu/cli/inference.py:
+  * `-i`: one song through the device pipeline (STFT -> CascadedNet
+    masks -> iSTFT, PCM16 out, song lengths padded to 30 s buckets;
+    --exact_length turns that off), or, with --stream or above
+    STREAM_ABOVE_SECONDS of audio, through segment streaming (constant
+    device memory for any length; --postprocess runs there);
+  * `--input_dir`: every audio file of a directory through the pipelined
+    service, songs padded to 30 s buckets and `--group` equal-length songs
+    batched into one patch stream, vocals as mixture - instruments.
+Unset performance flags resolve per mode as in the JAX CLI: `-i` crop
+256, batch 4, group 1, `highest`; `--input_dir` crop 1024, batch 24,
+group 8, `bfloat16`.
 Runs on card `--gpu` (default 0); `--gpu -1` runs on the CPU. Without a
 card and without `--gpu -1` it raises rather than fall back to the CPU.
 `--flat_conv` folds the BatchNorms and runs the enc2 / enc3 convs of
@@ -31,13 +41,14 @@ MODEL_DIR = os.path.join(
 )
 DEFAULT_MODEL_PATH = os.path.join(MODEL_DIR, "baseline.vrt.npz")
 
+# single songs longer than this are separated by segment streaming
+STREAM_ABOVE_SECONDS = 20 * 60
+
+_SPECTROGRAM_PATH = ("the spectrogram path with merge_artifacts (a later "
+                     "slice, ROADMAP.md A5)")
+
 # flag -> the later slice of the port that brings it
 _LATER = {
-    "input_dir": "directory mode (slice 2b, ROADMAP.md A8)",
-    "stream": "segment streaming (slice 2b, ROADMAP.md A8)",
-    "group": "cross-song patch batching (slice 2b, ROADMAP.md A8)",
-    "postprocess": "the spectrogram path with merge_artifacts (a later "
-                   "slice, ROADMAP.md A5)",
     "output_image": "the spectrogram path with images (a later slice, "
                     "ROADMAP.md A5)",
     "data_parallel": "multi-card inference (parallelism slice, ROADMAP.md "
@@ -62,25 +73,33 @@ def build_parser():
                    default=DEFAULT_MODEL_PATH)
     group = p.add_mutually_exclusive_group(required=True)
     group.add_argument('--input', '-i')
-    group.add_argument('--input_dir', type=str)
+    group.add_argument('--input_dir', type=str,
+                       help='separate every audio file in a directory '
+                            'through the pipelined serving path')
     p.add_argument('--sr', '-r', type=int, default=44100)
     p.add_argument('--n_fft', '-f', type=int, default=2048)
     p.add_argument('--hop_length', '-H', type=int, default=1024)
-    p.add_argument('--batchsize', '-B', type=int, default=4)
-    p.add_argument('--cropsize', '-c', type=int, default=256)
+    p.add_argument('--batchsize', '-B', type=int, default=None,
+                   help='patches per model call (default 4; directory '
+                        'mode 24)')
+    p.add_argument('--cropsize', '-c', type=int, default=None,
+                   help='patch width in frames (default 256; directory '
+                        'mode 1024; streaming always 256)')
     p.add_argument('--output_image', '-I', action='store_true')
     p.add_argument('--tta', '-t', action='store_true')
-    p.add_argument('--postprocess', '-p', action='store_true')
+    p.add_argument('--postprocess', '-p', action='store_true',
+                   help='merge_artifacts on the mask (with --stream only, '
+                        'so far)')
     p.add_argument('--output_dir', '-o', type=str, default="")
-    p.add_argument('--precision', type=str, default='highest',
+    p.add_argument('--precision', type=str, default=None,
                    choices=['highest', 'default', 'bfloat16', 'int8'],
-                   help='highest = full float32, no TF32 (default); '
-                        'default = float32 activations with TF32 '
-                        'multiplies (the card has no bf16 multiply for '
-                        'f32 tensors); bfloat16 = serving mode (folded '
-                        'BatchNorm, bf16-resident weights and '
-                        'activations, f32 accumulation); int8 is not '
-                        'ported yet (ROADMAP.md A13)')
+                   help='highest = full float32, no TF32 (single-file '
+                        'default); default = float32 activations with '
+                        'TF32 multiplies (the card has no bf16 multiply '
+                        'for f32 tensors); bfloat16 = serving mode (folded '
+                        'BatchNorm, bf16-resident weights and activations, '
+                        'f32 accumulation; directory-mode default); int8 '
+                        'is not ported yet (ROADMAP.md A13)')
     p.add_argument('--lstm_impl', type=str, default='scan',
                    choices=['scan', 'pallas'],
                    help='accepted for compatibility and ignored: the card '
@@ -91,19 +110,50 @@ def build_parser():
                         'enc2..enc3 convs as the flat pixel-packed CUDA '
                         'kernel (nn/conv_pack.py, csrc/flat_conv.cu)')
     p.add_argument('--profile', type=str, default=None, metavar='DIR')
-    p.add_argument('--stream', action='store_true')
+    p.add_argument('--stream', action='store_true',
+                   help='segment-streamed separation: constant device '
+                        'memory for any length (on by itself above '
+                        f'{STREAM_ABOVE_SECONDS // 60} minutes of audio)')
     p.add_argument('--exact_length', action='store_true',
                    help='no 30 s length bucket (bit-faithful song tail)')
-    p.add_argument('--group', type=int, default=None)
+    p.add_argument('--group', type=int, default=None,
+                   help='directory mode: stack N equal-length (bucketed) '
+                        'songs into one merged patch stream (default 8; '
+                        '1 turns it off); leftover partial groups run '
+                        'per song')
     p.add_argument('--data_parallel', type=int, default=1)
     return p
 
 
+def resolve_defaults(args):
+    """Unset performance flags per mode, as the JAX CLI resolves them:
+    single file crop 256, batch 4, group 1, `highest`; directory mode
+    crop 1024, batch 24, group 8 (1 with --data_parallel != 1),
+    `bfloat16`."""
+    dir_mode = args.input_dir is not None
+    if args.cropsize is None:
+        args.cropsize = 1024 if dir_mode else 256
+    if args.batchsize is None:
+        args.batchsize = 24 if dir_mode else 4
+    if args.group is None:
+        args.group = 8 if (dir_mode and args.data_parallel == 1) else 1
+    if args.precision is None:
+        args.precision = 'bfloat16' if dir_mode else 'highest'
+
+
 def _refuse_unported(parser, args):
+    if args.input_dir is not None and (args.postprocess or args.output_image):
+        raise SystemExit("--input_dir uses the pure-device serving path; "
+                         "--postprocess/--output_image require single-file "
+                         "mode")
     for flag, slice_name in _LATER.items():
         if getattr(args, flag) != parser.get_default(flag):
             raise SystemExit(f"--{flag} is not ported to the GPU package "
                              f"yet: it comes with {slice_name}")
+    if args.postprocess and not args.stream:
+        raise SystemExit("--postprocess is not ported to the GPU package "
+                         "yet without --stream: it comes with "
+                         f"{_SPECTROGRAM_PATH}")
     if args.precision == 'int8':
         raise SystemExit("--precision int8 is not ported to the GPU package "
                          "yet: it comes with int8 serving (ROADMAP.md A13)")
@@ -113,16 +163,53 @@ def _refuse_unported(parser, args):
                          "artifacts come with later slices)")
 
 
+def _input_files(input_dir: str):
+    """The directory's audio files as the JAX CLI picks them (lower-cased
+    extension in INPUT_EXTS, sorted); exits when there is none, or when
+    one is a format the port cannot decode yet."""
+    from vocal_remover_tpu_torch.data.pairing import INPUT_EXTS
+    from vocal_remover_tpu_torch.utils.audio import DECODABLE_EXTS
+
+    files = sorted(
+        os.path.join(input_dir, f) for f in os.listdir(input_dir)
+        if os.path.splitext(f)[1].lower() in INPUT_EXTS)
+    if not files:
+        raise SystemExit(f"no audio files in {input_dir!r}")
+    for path in files:
+        if os.path.splitext(path)[1].lower() not in DECODABLE_EXTS:
+            raise SystemExit(f"{path!r}: only WAV input is ported to the GPU "
+                             "package yet; FLAC, MP3 and AAC decoding come "
+                             "with a later slice (ROADMAP.md A5)")
+    return files
+
+
+def _output_prefix(output_dir: str) -> str:
+    if output_dir != "":
+        output_dir = output_dir.rstrip('/') + '/'
+        os.makedirs(output_dir, exist_ok=True)
+    return output_dir
+
+
+def _write_stems(prefix, y_wave, v_wave, sr):
+    from vocal_remover_tpu_torch.utils import audio
+
+    audio.write_wav(f'{prefix}_Instruments.wav',
+                    y_wave.astype(np.float32) / 32768.0, sr)
+    audio.write_wav(f'{prefix}_Vocals.wav',
+                    v_wave.astype(np.float32) / 32768.0, sr)
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
+    resolve_defaults(args)
     _refuse_unported(parser, args)
+    files = _input_files(args.input_dir) if args.input_dir else None
 
+    from vocal_remover_tpu_torch import resolve_device
     from vocal_remover_tpu_torch.models import convert
-    from vocal_remover_tpu_torch.separate.separator import Separator
-    from vocal_remover_tpu_torch.utils import audio
 
-    device = "cpu" if args.gpu < 0 else f"cuda:{args.gpu}"
+    device = resolve_device("cpu" if args.gpu < 0 else f"cuda:{args.gpu}")
     with _stage('load model'):
         model = convert.load_model(args.pretrained_model, args.n_fft,
                                    args.hop_length, 32, 128)
@@ -135,29 +222,88 @@ def main(argv=None):
             model = serving.serving_variables(
                 model, 'bfloat16' if args.precision == 'bfloat16' else None,
                 flat=args.flat_conv)
-        sp = Separator(model, batchsize=args.batchsize,
-                       cropsize=args.cropsize, device=device,
-                       precision=args.precision)
+        model = model.to(device).eval()
+
+    if files is not None:
+        _run_batch(args, model, device, files)
+    else:
+        _run_single(args, model, device)
+
+
+def _run_batch(args, model, device, files):
+    """Directory mode: every song through the pipelined service. Songs
+    are zero-padded to 30 s buckets, so equal buckets group; the stems
+    are trimmed back on write."""
+    from vocal_remover_tpu_torch.separate.separator import Separator
+    from vocal_remover_tpu_torch.separate.service import SeparatorService
+    from vocal_remover_tpu_torch.utils import audio
+
+    output_dir = _output_prefix(args.output_dir)
+    bucket = 30 * args.sr
+    lengths = []
+
+    def gen():
+        for path in files:
+            X, _ = audio.load(path, sr=args.sr)
+            if X.ndim == 1:
+                X = np.stack([X, X])
+            n = X.shape[-1]
+            lengths.append(n)
+            yield np.pad(X, ((0, 0), (0, -(-n // bucket) * bucket - n)))
+
+    sp = Separator(model, batchsize=args.batchsize, cropsize=args.cropsize,
+                   device=device, precision=args.precision)
+    svc = SeparatorService(sp, pcm16_io=True, tta=args.tta,
+                           vocals_residual=True, group=args.group)
+    with _stage(f'separate (directory, {len(files)} songs)'):
+        for i, (y, v) in enumerate(svc.map(gen())):
+            basename = os.path.splitext(os.path.basename(files[i]))[0]
+            n = lengths[i]
+            _write_stems(f'{output_dir}{basename}', y[:, :n], v[:, :n],
+                         args.sr)
+            print(basename, 'done', flush=True)
+
+
+def _run_single(args, model, device):
+    from vocal_remover_tpu_torch.utils import audio
 
     with _stage('load audio'):
         X, sr = audio.load(args.input, sr=args.sr)
     if X.ndim == 1:
         X = np.asarray([X, X])  # mono to stereo
-    basename = os.path.splitext(os.path.basename(args.input))[0]
+    prefix = _output_prefix(args.output_dir) + \
+        os.path.splitext(os.path.basename(args.input))[0]
 
-    output_dir = args.output_dir
-    if output_dir != "":
-        output_dir = output_dir.rstrip('/') + '/'
-        os.makedirs(output_dir, exist_ok=True)
+    # the streamed path is magnitude-mask only: complex checkpoints take
+    # the monolithic pipeline whatever the length
+    streamed = ((args.stream or X.shape[-1] > STREAM_ABOVE_SECONDS * sr)
+                and not model.is_complex)
+    if args.postprocess and not streamed:
+        raise SystemExit("--postprocess is not ported to the GPU package "
+                         "yet off the streamed path: it comes with "
+                         f"{_SPECTROGRAM_PATH}")
+    if streamed:
+        from vocal_remover_tpu_torch.separate.streaming import (
+            StreamingSeparator,
+        )
 
-    bucket = None if args.exact_length else 30 * sr
-    with _stage('separate (device pipeline)'):
-        y_wave, v_wave = sp.separate_wave(X, tta=args.tta, pcm16_io=True,
-                                          bucket=bucket)
-    audio.write_wav(f'{output_dir}{basename}_Instruments.wav',
-                    y_wave.astype(np.float32) / 32768.0, sr)
-    audio.write_wav(f'{output_dir}{basename}_Vocals.wav',
-                    v_wave.astype(np.float32) / 32768.0, sr)
+        sp = StreamingSeparator(model, batchsize=args.batchsize,
+                                pcm16_io=True, vocals_residual=True,
+                                tta=args.tta, postprocess=args.postprocess,
+                                device=device, precision=args.precision)
+        with _stage('separate (streamed segments)'):
+            y_wave, v_wave = sp.separate_wave(X)
+    else:
+        from vocal_remover_tpu_torch.separate.separator import Separator
+
+        sp = Separator(model, batchsize=args.batchsize,
+                       cropsize=args.cropsize, device=device,
+                       precision=args.precision)
+        bucket = None if args.exact_length else 30 * sr
+        with _stage('separate (device pipeline)'):
+            y_wave, v_wave = sp.separate_wave(X, tta=args.tta, pcm16_io=True,
+                                              bucket=bucket)
+    _write_stems(prefix, y_wave, v_wave, sr)
 
 
 if __name__ == '__main__':

@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["hann_window", "num_frames", "stft", "istft"]
+__all__ = ["hann_window", "num_frames", "frame_spectrum", "stft",
+           "overlap_add", "istft"]
 
 
 def hann_window(n_fft: int, device=None) -> torch.Tensor:
@@ -29,20 +30,30 @@ def num_frames(length: int, n_fft: int, hop_length: int) -> int:
     return 1 + (length + 2 * (n_fft // 2) - n_fft) // hop_length
 
 
-def stft(wave, n_fft: int, hop_length: int):
-    """(..., length) float32 -> (real, imag), each (..., n_fft//2 + 1,
-    n_frames) float32."""
-    lead = wave.shape[:-1]
-    pad = n_fft // 2
-    x = torch.nn.functional.pad(wave.reshape(1, -1, wave.shape[-1]),
-                                (pad, pad), mode="reflect")
-    frames = x[0].unfold(-1, n_fft, hop_length)  # (B, n_frames, n_fft)
-    spec = torch.fft.rfft(frames * hann_window(n_fft, wave.device), dim=-1)
+def frame_spectrum(x, n_fft: int, hop_length: int):
+    """Un-centred STFT of an already padded slice: (..., length) float32
+    -> (real, imag), each (..., n_fft//2 + 1, n_frames) float32, frame t
+    windowing samples [t * hop, t * hop + n_fft). The counterpart of the
+    JAX package's framing by `_device_frame_indices`, for callers that do
+    their own padding (segment streaming)."""
+    lead = x.shape[:-1]
+    frames = x.reshape(-1, x.shape[-1]).unfold(-1, n_fft, hop_length)
+    spec = torch.fft.rfft(frames * hann_window(n_fft, x.device), dim=-1)
     spec = spec.transpose(-1, -2).reshape(*lead, n_fft // 2 + 1, -1)
     return spec.real.float(), spec.imag.float()
 
 
-def _overlap_add(frames, hop_length: int):
+def stft(wave, n_fft: int, hop_length: int):
+    """(..., length) float32 -> (real, imag), each (..., n_fft//2 + 1,
+    n_frames) float32."""
+    pad = n_fft // 2
+    x = torch.nn.functional.pad(wave.reshape(1, -1, wave.shape[-1]),
+                                (pad, pad), mode="reflect")
+    return frame_spectrum(x[0].reshape(*wave.shape[:-1], -1), n_fft,
+                          hop_length)
+
+
+def overlap_add(frames, hop_length: int):
     """(B, n_frames, n_fft) -> (B, n_fft + hop * (n_frames - 1))."""
     b, n_frames, n_fft = frames.shape
     total = n_fft + hop_length * (n_frames - 1)
@@ -60,9 +71,9 @@ def istft(real, imag, n_fft: int, hop_length: int, length: int | None = None):
     spec = torch.complex(real, imag).reshape(-1, *real.shape[-2:])
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
     window = hann_window(n_fft, real.device)
-    y = _overlap_add(frames * window, hop_length)
-    wss = _overlap_add((window * window).expand(1, n_frames, n_fft),
-                       hop_length)
+    y = overlap_add(frames * window, hop_length)
+    wss = overlap_add((window * window).expand(1, n_frames, n_fft),
+                      hop_length)
     tiny = float(np.finfo(np.float32).tiny)
     y = torch.where(wss > tiny, y / wss.clamp_min(tiny), y)
     pad = n_fft // 2

@@ -1,16 +1,25 @@
-"""Whole-song separation: wave in, instruments and vocals out.
+"""Whole-song separation: waves in, instruments and vocals out.
 
 Counterpart of vocal_remover_tpu/separate/separator.py
-`Separator.separate_wave` (`_build_wave_fn`): STFT -> |X| / max|X| ->
-256-frame patches -> CascadedNet eval forward in chunks of `batchsize`
-patches -> stitch -> mask * X and (1 - mask) * X -> iSTFT, with PCM16 in
-and out. PyTorch runs eagerly, so the chunk loop is a Python loop; the
-patch count is still rounded up to whole chunks, as in the JAX package,
-so both run the model on the same patches.
+`Separator.separate_wave` (`_build_wave_fn`) and `separate_waves`
+(`_build_multiwave_fn`): STFT -> |X| / max|X| -> `cropsize`-frame patches
+-> CascadedNet eval forward in chunks of `batchsize` patches -> stitch ->
+mask * X and (1 - mask) * X -> iSTFT, with PCM16 in and out.
 
-Normalisation quirks kept from the reference: without TTA the input is
-scaled by max|X| of the unpadded spectrogram; with TTA each pass is
-scaled by |numpy-lexicographic max| of its own padded spectrogram.
+One path serves a stack of S equal-length songs, S = 1 for one song:
+each song keeps its own normalisation and stitch, and the patches of all
+songs run as one stream, cut into chunks of `batchsize` (cross-song patch
+batching: at crop 1024 a 60 s song is 3 patches, so 8 songs fill a chunk
+of 24). PyTorch runs eagerly, so the chunk loop is a Python loop. The last
+chunk is topped up with zero patches whose masks are dropped, as the JAX
+package does for a stack; for one song the JAX package pads frames
+instead, which gives the same chunk count and the same kept masks (eval
+patches do not see each other).
+
+Normalisation quirks kept from the reference: without TTA each song is
+scaled by its max|X| of the unpadded spectrogram; with TTA each pass is
+scaled by |numpy-lexicographic max| of the song's own padded
+spectrogram.
 """
 
 from __future__ import annotations
@@ -24,21 +33,32 @@ from vocal_remover_tpu_torch.ops.stft import istft, num_frames, stft
 from vocal_remover_tpu_torch.ops.windowing import (
     extract_patches,
     make_padding,
-    num_patches,
     stitch_masks,
 )
 from vocal_remover_tpu_torch.utils.audio import pcm16_encode
 
 
 def _lexmax_abs(re, im):
-    """|numpy-lexicographic max| of a complex array given as re/im: the
-    reference's `X_spec_pad.max()` (inference.py:87)."""
-    r_star = re.max()
-    i_star = torch.where(re == r_star, im, -torch.inf).max()
-    return torch.sqrt(r_star * r_star + i_star * i_star)
+    """Per song of an (S, ...) stack given as re/im: |numpy-lexicographic
+    max| of the complex array, the reference's `X_spec_pad.max()`
+    (inference.py:87)."""
+    dims = tuple(range(1, re.dim()))
+    r_star = re.amax(dim=dims, keepdim=True)
+    i_star = torch.where(re == r_star, im, -torch.inf).amax(dim=dims,
+                                                            keepdim=True)
+    return torch.sqrt(r_star * r_star + i_star * i_star).flatten()
 
 
-def _to_i16(w):
+def host_wave(wave, pcm16_io: bool) -> np.ndarray:
+    """A host wave as the separation takes it, C-contiguous: int16 PCM
+    with `pcm16_io` (a float wave is quantised here), else float32."""
+    if pcm16_io:
+        return np.ascontiguousarray(
+            wave if wave.dtype == np.int16 else pcm16_encode(wave))
+    return np.ascontiguousarray(wave, np.float32)
+
+
+def to_i16(w):
     """The PCM_16 WAV conversion: clip, scale by 32768, round half to
     even."""
     w = torch.clamp(w, -1.0, 1.0 - 1.0 / 32768.0)
@@ -64,63 +84,104 @@ class Separator:
         self.cropsize = cropsize
 
     def _masks(self, re_pad, im_pad, inv_scale, roi):
-        """Padded spectrogram -> stitched mask over the padded interior."""
+        """Padded (S, 2, F, T) spectrograms and (S,) scales -> stitched
+        masks (S, C, F, P * roi), the patches of all songs merged into one
+        stream of whole chunks."""
+        scale = inv_scale.view(-1, 1, 1, 1)
         if self.model.is_complex:
-            feats = torch.cat([re_pad, im_pad], dim=0) * inv_scale
+            feats = torch.cat([re_pad, im_pad], dim=1) * scale
         else:
-            feats = torch.sqrt(re_pad * re_pad + im_pad * im_pad) * inv_scale
-        # (P, C, F, crop); P is a whole number of chunks by construction
+            feats = torch.sqrt(re_pad * re_pad + im_pad * im_pad) * scale
         x = extract_patches(feats, self.cropsize, roi, self.offset)
+        n_p, n_s = x.shape[:2]  # (P, S, C, F, crop)
+        x = x.transpose(0, 1).reshape(n_s * n_p, *x.shape[2:])
         bs = self.batchsize
-        out = torch.cat([self.model(x[i:i + bs])
-                         for i in range(0, x.shape[0], bs)])
-        return stitch_masks(out, self.offset)  # (C, F, P * roi)
+        out = []
+        for i in range(0, x.shape[0], bs):
+            xb = x[i:i + bs]
+            n = xb.shape[0]
+            if n < bs:  # the last chunk, topped up with zero patches
+                xb = torch.cat([xb, xb.new_zeros(bs - n, *xb.shape[1:])])
+            out.append(self.model(xb)[:n])
+        out = torch.cat(out)
+        out = out.reshape(n_s, n_p, *out.shape[1:]).transpose(0, 1)
+        return stitch_masks(out, self.offset)
 
     @torch.inference_mode()
-    def _run(self, wave, n_samples: int, tta: bool):
+    def _run(self, waves, tta: bool, only_instruments: bool = False):
+        """(S, 2, n) float32 waves on the device -> (instruments, vocals),
+        each (S, 2, n) float32; vocals None with `only_instruments` (its
+        iSTFT is skipped)."""
         model = self.model
         n_fft, hop = model.n_fft, model.hop_length
-        crop, off, bs = self.cropsize, self.offset, self.batchsize
+        n_samples = waves.shape[-1]
         n_frame = num_frames(n_samples, n_fft, hop)
-        pad_l0, pad_r0, roi = make_padding(n_frame, crop, off)
+        pad_l, pad_r, roi = make_padding(n_frame, self.cropsize, self.offset)
         shift = roi // 2
 
-        def bucketed(pad_l, pad_r):
-            """Round the patch count up to whole chunks."""
-            n = num_patches(pad_l + n_frame + pad_r, roi, off)
-            return pad_l, pad_r + (-(-n // bs) * bs - n) * roi
+        re, im = stft(waves, n_fft, hop)  # (S, 2, F, T)
 
-        re, im = stft(wave, n_fft, hop)  # (2, F, T)
-
-        def padded(pad_l, pad_r):
-            cfg = bucketed(pad_l, pad_r)
+        def padded(extra):
+            cfg = (pad_l + extra, pad_r + extra)
             pad = torch.nn.functional.pad
             return pad(re, cfg), pad(im, cfg)
 
         if tta:
-            re1, im1 = padded(pad_l0, pad_r0)
+            re1, im1 = padded(0)
             m1 = self._masks(re1, im1, 1.0 / _lexmax_abs(re1, im1), roi)
-            re2, im2 = padded(pad_l0 + shift, pad_r0 + shift)
+            re2, im2 = padded(shift)
             m2 = self._masks(re2, im2, 1.0 / _lexmax_abs(re2, im2), roi)
             mask = (m1[..., :n_frame] + m2[..., shift:shift + n_frame]) * 0.5
         else:
-            inv = 1.0 / torch.sqrt(re * re + im * im).max()
-            re1, im1 = padded(pad_l0, pad_r0)
+            inv = 1.0 / torch.sqrt(re * re + im * im).amax(dim=(1, 2, 3))
+            re1, im1 = padded(0)
             mask = self._masks(re1, im1, inv, roi)[..., :n_frame]
 
         if model.is_complex:  # y = m (*) X, v = X - y
-            mr, mi = mask[:2], mask[2:]
+            mr, mi = mask[:, :2], mask[:, 2:]
             y_re, y_im = mr * re - mi * im, mr * im + mi * re
             v_re, v_im = re - y_re, im - y_im
         else:
             y_re, y_im = mask * re, mask * im
             v_re, v_im = (1 - mask) * re, (1 - mask) * im
-        return (istft(y_re, y_im, n_fft, hop, n_samples),
-                istft(v_re, v_im, n_fft, hop, n_samples))
+        y = istft(y_re, y_im, n_fft, hop, n_samples)
+        if only_instruments:
+            return y, None
+        return y, istft(v_re, v_im, n_fft, hop, n_samples)
+
+    def _separate(self, x, tta: bool, pcm16_io: bool,
+                  only_instruments: bool = False):
+        """(S, 2, n) tensor on the device, int16 with `pcm16_io` -> the
+        stems as tensors on the device, int16 with `pcm16_io`, else
+        float32. The caller holds the precision mode."""
+        x = x.float() / 32768.0 if pcm16_io else x.float()
+        y, v = self._run(x, tta, only_instruments)
+        if pcm16_io:
+            y, v = to_i16(y), (None if v is None else to_i16(v))
+        return y, v
+
+    def separate_waves(self, waves: np.ndarray, tta: bool = False,
+                       pcm16_io: bool = False,
+                       only_instruments: bool = False):
+        """(S, 2, n_samples) stack of equal-length songs ->
+        (instruments, vocals), each (S, 2, n_samples); vocals None with
+        `only_instruments`.
+
+        pcm16_io: take and return int16 PCM (a float input is quantised
+        on the host first)."""
+        waves = np.asarray(waves)
+        if waves.ndim != 3:
+            raise ValueError("separate_waves expects a (S, 2, n) stack")
+        x = torch.from_numpy(host_wave(waves, pcm16_io)).to(self.device)
+        with config.precision(self.precision):
+            y, v = self._separate(x, tta, pcm16_io, only_instruments)
+        return y.cpu().numpy(), (None if v is None else v.cpu().numpy())
 
     def separate_wave(self, wave: np.ndarray, tta: bool = False,
-                      pcm16_io: bool = False, bucket: int | None = None):
-        """(2, n_samples) wave -> (instruments_wave, vocals_wave).
+                      pcm16_io: bool = False, bucket: int | None = None,
+                      only_instruments: bool = False):
+        """(2, n_samples) wave -> (instruments_wave, vocals_wave); vocals
+        None with `only_instruments`.
 
         pcm16_io: take and return int16 PCM (a float input is quantised
         on the host first). bucket: zero-pad the song to a multiple of
@@ -132,12 +193,6 @@ class Separator:
             padded = -(-n_orig // bucket) * bucket
             if padded != n_orig:
                 wave = np.pad(wave, ((0, 0), (0, padded - n_orig)))
-        if pcm16_io and wave.dtype != np.int16:
-            wave = pcm16_encode(wave)
-        x = torch.from_numpy(np.ascontiguousarray(wave)).to(self.device)
-        x = x.float() / 32768.0 if pcm16_io else x.float()
-        with config.precision(self.precision):
-            y, v = self._run(x, wave.shape[-1], tta)
-        if pcm16_io:
-            y, v = _to_i16(y), _to_i16(v)
-        return y.cpu().numpy()[:, :n_orig], v.cpu().numpy()[:, :n_orig]
+        y, v = self.separate_waves(np.asarray(wave)[None], tta, pcm16_io,
+                                   only_instruments)
+        return y[0, :, :n_orig], (None if v is None else v[0, :, :n_orig])

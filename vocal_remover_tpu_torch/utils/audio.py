@@ -17,7 +17,11 @@ import wave as _wave
 import numpy as np
 from scipy.io import wavfile
 
-__all__ = ["load", "read_wav", "write_wav", "resample", "pcm16_encode"]
+__all__ = ["DECODABLE_EXTS", "load", "read_wav", "write_wav", "resample",
+           "pcm16_encode"]
+
+# the extensions `load` decodes in this slice
+DECODABLE_EXTS = (".wav",)
 
 
 def pcm16_encode(wave: np.ndarray) -> np.ndarray:
@@ -79,7 +83,7 @@ def load(path: str, sr: int | None = 44100) -> tuple[np.ndarray, int]:
     """librosa.load(mono=False)-style: ((C, L) float32, or (L,) for a
     one-channel file, sample rate), resampled to `sr` when given. WAV
     only in this slice."""
-    if os.path.splitext(path)[1].lower() != ".wav":
+    if os.path.splitext(path)[1].lower() not in DECODABLE_EXTS:
         raise ValueError(
             f"{path!r}: only WAV input is ported yet; FLAC, MP3 and AAC "
             "come with a later slice"
