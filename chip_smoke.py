@@ -41,6 +41,19 @@ Phases (each prints a line; any failure exits non-zero):
   5. reference: a 4 s song through the CLI on the card and on the CPU
      (plain versions of both kernels), plain and --flat_conv: stems
      within 1 LSB;
+  5b. spectrogram path ([spec]): the 60 s song through the CLI's host
+     STFT / iSTFT path with masks on the card: --output_image (stems
+     within 1 LSB of the device pipeline with --exact_length, both
+     images of (1025, frames, 3), not constant: JPEGs where PIL is
+     installed, then PNGs from the stdlib writer with PIL hidden),
+     --postprocess with
+     and without --tta (against --stream --postprocess within
+     SPEC_VS_STREAM_LSB), --postprocess --flat_conv --precision bfloat16
+     (SNR floor, 20 flat conv launches a chunk), a .pth of the same
+     weights and the song as FLAC (both bit-identical to the .vrt.npz WAV
+     run), --profile (a Chrome trace naming the recurrence kernel); each
+     run with its stage walls, launches (recurrence 30 a song, 60 with
+     --tta), residual, peak device memory and the card's power limit;
   6. directory mode ([dir]): 10 songs (8 x 60 s, 45 s, 95 s: one group of
      8 and two songs alone) through --input_dir at its defaults (bf16,
      crop 1024, batch 24, group 8) first, warm and under torch.profiler
@@ -73,14 +86,17 @@ import argparse
 import concurrent.futures
 import contextlib
 import gc
+import importlib.util
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import wave as wav_io
+import zlib
 
 import numpy as np
 import torch
@@ -145,6 +161,7 @@ def walked_share(blocks, wst_shape, ns, dtype) -> float:
 
 
 def phase_card():
+    """-> (the card's name, nvidia-smi's name and power limit)."""
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = subprocess.run(
@@ -155,7 +172,7 @@ def phase_card():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(smi, flush=True)
     check(cap == (9, 0), f"needs a Hopper card (sm_90), got {cap}")
-    return name
+    return name, smi
 
 
 def phase_build(kernels):
@@ -984,6 +1001,17 @@ def phase_dir(tmp, ckpt, seed, counters, per_chunk):
 
 
 STREAM_SECONDS = 150  # two streamed segments plus a tail
+STREAM_OWNED = 34  # the CLI's batch 4: owned patches a segment, 36 with the halo
+
+
+def stream_chunks(n_samples: int):
+    """(segments, 4-patch chunks) of a streamed song at the flagship STFT
+    (roi 128)."""
+    from vocal_remover_tpu_torch.ops import stft as stft_ops
+
+    n_frame = stft_ops.num_frames(n_samples, 2048, 1024)
+    n_seg = -(-(-(-n_frame // 128) * 128) // (STREAM_OWNED * 128))
+    return n_seg, n_seg * (STREAM_OWNED + 2) // 4
 
 
 def phase_stream(tmp, ckpt, seed, counters, per_chunk):
@@ -997,11 +1025,9 @@ def phase_stream(tmp, ckpt, seed, counters, per_chunk):
     audio.write_wav(song, synth_song(STREAM_SECONDS, seed + 3), SR)
     mix = read_mix(song)
     n = mix.shape[-1]
-    # the CLI's batch 4: K = 34 owned patches a segment, 36 with the halo
-    k_own, roi = 34, 128
+    n_seg, seg_chunks = stream_chunks(n)
+    k_own, roi = STREAM_OWNED, 128
     n_frame = stft_ops.num_frames(n, 2048, 1024)
-    n_seg = -(-(-(-n_frame // roi) * roi) // (k_own * roi))
-    seg_chunks = n_seg * (k_own + 2) // 4
     mono = {False: -(-patch_count(n, 256) // 4),
             True: -(-patch_count(n, 256) // 4)
             + -(-patch_count(n, 256, roi // 2) // 4)}
@@ -1050,6 +1076,201 @@ def phase_stream(tmp, ckpt, seed, counters, per_chunk):
                      f"Vocals {snr[1]:.2f} dB")
         print(line, flush=True)
 
+
+
+# the spectrogram path's stems against --stream --postprocess's: the
+# bound the port's CPU test holds the same pair to (JAX's 4e-4 of full
+# scale = 13.1 LSB, plus the PCM16 rounding of both stems)
+SPEC_VS_STREAM_LSB = 14
+
+
+def read_png(path):
+    """(height, width, channels) uint8 pixels of a PNG that the port's
+    stdlib writer made (8-bit, filter 0 on every row)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    width, height, depth, ctype = struct.unpack(">IIBB", data[16:26])
+    check(depth == 8 and ctype in (0, 2, 6), f"{path}: depth {depth}, "
+                                             f"colour type {ctype}")
+    channels = {0: 1, 2: 3, 6: 4}[ctype]
+    idat, pos = b"", 8
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += n + 12
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, 1 + width * channels)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(height, width, channels)
+
+
+@contextlib.contextmanager
+def pil_hidden():
+    """PIL unimportable inside the block: the CLI's stdlib PNG writer
+    takes over from it."""
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+
+
+def read_image(path):
+    """(height, width, channels) pixels of the CLI's image: a PNG by this
+    script's reader, a JPEG (PIL present) by PIL."""
+    if path.endswith(".png"):
+        return read_png(path)
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def phase_spec(tmp, ckpt, seed, counters, per_chunk, smi):
+    """The spectrogram path (host STFT, `Separator.separate` /
+    `separate_tta` with masks on the card, host iSTFT) through the CLI on
+    the main path's 60 s song: --output_image against the device
+    pipeline with --exact_length (JPEGs when PIL is installed, then PNGs
+    with PIL hidden), --postprocess (with and without TTA)
+    against --stream --postprocess, bf16 + --flat_conv, a .pth of the
+    same weights, FLAC input and --profile."""
+    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.utils import flac
+
+    song = os.path.join(tmp, "song.wav")
+    mix = read_mix(song)
+    n = mix.shape[-1]
+    n_cov = 1024 * (n // 1024)  # the spectrogram path's stem length
+    chunks = {False: -(-patch_count(n, 256) // 4),
+              True: -(-patch_count(n, 256) // 4)
+              + -(-patch_count(n, 256, 64) // 4)}
+    _, seg_chunks = stream_chunks(n)
+
+    pth = os.path.join(tmp, "flagship.pth")
+    torch.save(convert.load_model(ckpt, 2048, 1024).state_dict(), pth)
+    flac_song = os.path.join(tmp, "song.flac")
+    t0 = time.perf_counter()
+    flac.write_flac(flac_song, mix / 32768.0, SR)
+    print(f"[spec] {SONG_SECONDS} s song as 16-bit FLAC (utils/flac.py): "
+          f"{os.path.getsize(flac_song)} bytes in "
+          f"{time.perf_counter() - t0:.2f} s; flagship as .pth "
+          f"(torch.save of the state_dict): {os.path.getsize(pth)} bytes",
+          flush=True)
+    trace_dir = os.path.join(tmp, "spec-trace")
+    pp = ["--postprocess"]
+    # label, checkpoint, input, flags, kernels, model chunks
+    runs = [
+        ("pipeline exact", ckpt, song, ["--exact_length"],
+         ("lstm_recurrence",), chunks[False]),
+        ("image", ckpt, song, ["--output_image"], ("lstm_recurrence",),
+         chunks[False]),
+        ("image png", ckpt, song, ["--output_image"], ("lstm_recurrence",),
+         chunks[False]),
+        ("postprocess", ckpt, song, pp, ("lstm_recurrence",), chunks[False]),
+        ("postprocess tta", ckpt, song, pp + ["--tta"], ("lstm_recurrence",),
+         chunks[True]),
+        ("stream postprocess", ckpt, song, pp + ["--stream"],
+         ("lstm_recurrence",), seg_chunks),
+        ("stream postprocess tta", ckpt, song, pp + ["--stream", "--tta"],
+         ("lstm_recurrence",), 2 * seg_chunks),
+        ("postprocess flat bf16", ckpt, song,
+         pp + ["--flat_conv", "--precision", "bfloat16"],
+         ("lstm_recurrence", "flat_conv"), chunks[False]),
+        ("pth", pth, song, pp, ("lstm_recurrence",), chunks[False]),
+        ("flac", ckpt, flac_song, pp, ("lstm_recurrence",), chunks[False]),
+        ("profile", ckpt, song, pp + ["--profile", trace_dir],
+         ("lstm_recurrence",), chunks[False]),
+    ]
+    stems = {}
+    for label, model, src, flags, kernels, n_chunks in runs:
+        out_dir = os.path.join(tmp, "spec-" + label.replace(" ", "-"))
+        torch.cuda.reset_peak_memory_stats()
+        with pil_hidden() if label == "image png" else contextlib.nullcontext():
+            (wall, launches), stages = quiet(
+                run_cli, ["-P", model, "-i", src, "-o", out_dir] + flags,
+                counters)
+        peak = torch.cuda.max_memory_allocated()
+        for k, got in launches.items():
+            want = per_chunk[k] * n_chunks if k in kernels else 0
+            check(got == want, f"spec {label}: {k} launched {got} times, "
+                               f"want {want} ({n_chunks} chunks)")
+        y, v = stems[label] = read_stems(out_dir, "song")
+        spectrogram = "--stream" not in flags and label != "pipeline exact"
+        want_len = n_cov if spectrogram else n
+        check(y.shape == v.shape == (2, want_len),
+              f"spec {label}: stem shape {y.shape}, want (2, {want_len})")
+        resid = residual_lsb(y[:, :n_cov], v[:, :n_cov], mix[:, :n_cov])
+        check(resid <= 2, f"spec {label}: |Instruments + Vocals - mixture| "
+                          f"= {resid} LSB > 2")
+        line = (f"[spec] {label}: {wall:.3f} s wall, CLI stages: {stages}; "
+                f"launches {launches} ({n_chunks} chunks); residual {resid} "
+                f"LSB; peak device memory {peak / 2**30:.2f} GiB; {smi}")
+        if spectrogram:
+            walls = dict(
+                (part.rsplit(": ", 1)[0], float(part.rsplit(": ", 1)[1][:-1]))
+                for part in stages.split("; ") if part.endswith("s"))
+            host = sum(t for k, t in walls.items()
+                       if k == "stft" or k.startswith("istft"))
+            line += (f"; host STFT + iSTFT + writes {host:.2f} s = "
+                     f"{100 * host / wall:.1f}% of wall")
+        if label.startswith("image"):
+            ref = stems["pipeline exact"]
+            diff = max(int(np.abs(a - b[:, :n_cov]).max())
+                       for a, b in zip((y, v), ref))
+            check(diff <= 1, f"spec {label}: stems vs the device pipeline "
+                             f"(--exact_length) {diff} LSB > 1")
+            line += f"; vs the device pipeline (--exact_length) max {diff} LSB"
+            png = label == "image png" or importlib.util.find_spec(
+                "PIL") is None
+            ext, other = (".png", ".jpg") if png else (".jpg", ".png")
+            for stem in ("Instruments", "Vocals"):
+                path = os.path.join(out_dir, f"song_{stem}{ext}")
+                check(os.path.exists(path) and not os.path.exists(
+                    path[:-4] + other), f"spec {label}: no {path} alone")
+                img = read_image(path)
+                check(img.shape == (1025, n_cov // 1024 + 1, 3),
+                      f"spec {label}: {stem} image {img.shape}")
+                check(img.min() != img.max(),
+                      f"spec {label}: {stem} image constant")
+                line += f"; {stem}{ext} {img.shape}"
+        if label.startswith("stream postprocess"):
+            ref = stems[label.replace("stream ", "")]
+            diff = max(int(np.abs(a[:, :n_cov] - b).max())
+                       for a, b in zip((y, v), ref))
+            check(diff <= SPEC_VS_STREAM_LSB,
+                  f"spec {label}: vs the spectrogram path {diff} LSB > "
+                  f"{SPEC_VS_STREAM_LSB}")
+            line += (f"; vs the spectrogram path max {diff} LSB (tol "
+                     f"{SPEC_VS_STREAM_LSB})")
+        if label == "postprocess flat bf16":
+            snr = [snr_db(a, b) for a, b in zip(stems["postprocess"], (y, v))]
+            check(min(snr) >= BF16_SNR_FLOOR_DB, f"spec {label}: SNR {snr} "
+                  f"dB against highest, floor {BF16_SNR_FLOOR_DB}")
+            line += (f"; SNR vs highest: Instruments {snr[0]:.2f} dB, "
+                     f"Vocals {snr[1]:.2f} dB")
+        if label in ("pth", "flac"):
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(stems["postprocess"], (y, v)))
+            check(same, f"spec {label}: stems differ from the .vrt.npz WAV "
+                        "run's")
+            line += "; bit-identical to the .vrt.npz WAV run"
+        if label == "profile":
+            traces = os.listdir(trace_dir)
+            check(len(traces) == 1, f"spec profile: {traces} in {trace_dir}")
+            with open(os.path.join(trace_dir, traces[0])) as f:
+                text = f.read()
+            check(KERNEL_SYMBOLS["lstm_recurrence"] in text,
+                  "spec profile: the trace does not name the recurrence "
+                  "kernel")
+            line += (f"; trace {traces[0]}, {len(text)} bytes, names "
+                     f"{KERNEL_SYMBOLS['lstm_recurrence']}")
+        print(line, flush=True)
 
 
 def phase_profile(ckpt, seed):
@@ -1165,7 +1386,7 @@ def main():
     }]
     counters = {k["name"]: k["wrapper"] for k in kernels}
 
-    name = phase_card()
+    name, smi = phase_card()
     config.set_precision("highest")
     phase_build(kernels)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1178,6 +1399,7 @@ def main():
         per_chunk = {k["name"]: k["per_chunk"] for k in kernels}
         ckpt, results = phase_main_path(tmp, args.seed, counters, per_chunk)
         phase_reference(tmp, ckpt, args.seed)
+        phase_spec(tmp, ckpt, args.seed, counters, per_chunk, smi)
         phase_dir(tmp, ckpt, args.seed, counters, per_chunk)
         phase_stream(tmp, ckpt, args.seed, counters, per_chunk)
         if args.profile:

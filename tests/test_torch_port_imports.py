@@ -117,6 +117,53 @@ def test_load_resamples_like_jax(rng, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-def test_load_refuses_compressed_formats(tmp_path):
-    with pytest.raises(ValueError, match="only WAV"):
-        taudio.load(str(tmp_path / "song.flac"))
+def test_load_refuses_compressed_formats(tmp_path, monkeypatch):
+    """A compressed file that its native decoder rejects is refused as
+    the JAX package refuses it: ffmpeg would be its last resort, and it
+    is not on PATH."""
+    path = str(tmp_path / "song.flac")
+    with open(path, "wb") as f:
+        f.write(b"RIFFnotflac" * 8)
+    monkeypatch.setattr(taudio, "_FFMPEG", None)
+    monkeypatch.setattr(jaudio, "_FFMPEG", None)
+    with pytest.raises(RuntimeError, match="ffmpeg"):
+        taudio.load(path)
+    with pytest.raises(RuntimeError, match="ffmpeg"):
+        jaudio.load(path)
+
+
+def test_native_decoders_are_the_ports_own():
+    """The decoders build from the port's own copies: every source and
+    header the build reads lies in vocal_remover_tpu_torch/native, every
+    quoted #include names a file there, and no source of the port names
+    a path into the JAX package's native/."""
+    import re
+
+    from vocal_remover_tpu_torch.native import build
+
+    own = os.path.join(ROOT, "vocal_remover_tpu_torch", "native")
+    assert os.path.samefile(build.SRC_DIR, own)
+    assert build.BUILD_DIR.parent.name == "build" and os.path.samefile(
+        build.BUILD_DIR.parent.parent, ROOT)
+    for name in build.SOURCES + build.HEADERS:
+        assert os.path.exists(os.path.join(own, name)), name
+    for name in os.listdir(own):
+        path = os.path.join(own, name)
+        if name.endswith((".c", ".h")):
+            with open(path) as f:
+                for inc in re.findall(r'#include\s+"([^"]+)"', f.read()):
+                    assert os.path.dirname(inc) == "" and os.path.exists(
+                        os.path.join(own, inc)), f"{name} includes {inc}"
+    jax_native = re.compile(r"vocal_remover_tpu[/.]native")
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert not jax_native.search(node.value), (
+                    f"{os.path.relpath(path, ROOT)} points into the JAX "
+                    f"package's native/: {node.value!r}")

@@ -244,18 +244,28 @@ def test_cli_input_dir_matches_jax(ckpt, tmp_path):
         f"{n}_{s}.wav" for n in names for s in ("Instruments", "Vocals"))
 
 
-def test_cli_input_dir_refuses_undecodable_files(ckpt, tmp_path):
-    """A file the port cannot decode yet stops the run before any
-    separation, naming the slice that brings its decoder."""
+def test_cli_input_dir_refuses_undecodable_files(ckpt, tmp_path,
+                                                monkeypatch):
+    """A file that no decoder reads (its native decoder rejects it, and
+    ffmpeg is not on PATH) stops the directory run as it stops the JAX
+    CLI's, after the songs before it were written."""
+    from vocal_remover_tpu.utils import audio as jaudio
+
     d = tmp_path / "songs"
     d.mkdir()
     audio.write_wav(str(d / "a.wav"), song(1.0), SR)
     (d / "b.MP3").write_bytes(b"\xff\xfb" + bytes(64))
-    out = tmp_path / "out"
-    with pytest.raises(SystemExit, match="A5"):
-        cli.main(["--input_dir", str(d), "-P", ckpt, "-r", str(SR), "-f",
-                  "256", "-H", "128", "-o", str(out), "--gpu", "-1"])
-    assert not out.exists()
+    monkeypatch.setattr(audio, "_FFMPEG", None)
+    monkeypatch.setattr(jaudio, "_FFMPEG", None)
+    for main, out in ((cli.main, tmp_path / "port"),
+                      (jcli.main, tmp_path / "jax")):
+        flags = ["--gpu", "-1"] if main is cli.main else []
+        with pytest.raises(RuntimeError, match="ffmpeg"):
+            main(["--input_dir", str(d), "-P", ckpt, "-r", str(SR), "-f",
+                  "256", "-H", "128", "-c", "256", "-B", "2", "--precision",
+                  "highest", "-o", str(out), *flags])
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "jax"))
 
 
 @pytest.mark.parametrize("flag", ["--postprocess", "--output_image"])

@@ -200,7 +200,8 @@ def test_cli_stream_matches_jax(ckpts, tmp_path, flags):
 @pytest.mark.parametrize("kind", ["magnitude", "complex"])
 def test_cli_streams_long_songs(ckpts, tmp_path, monkeypatch, capsys, kind):
     """Above STREAM_ABOVE_SECONDS a song streams as with --stream; a
-    complex checkpoint never does (and so refuses --postprocess)."""
+    complex checkpoint never does (with --postprocess it takes the
+    spectrogram path, as in the JAX CLI)."""
     song = str(tmp_path / "song.wav")
     audio.write_wav(song, synth_song(SR, 2.0), SR)
     monkeypatch.setattr(cli, "STREAM_ABOVE_SECONDS", 1)
@@ -209,10 +210,11 @@ def test_cli_streams_long_songs(ckpts, tmp_path, monkeypatch, capsys, kind):
     said = capsys.readouterr().out
     if kind == "complex":
         assert "separate (device pipeline)" in said
-        with pytest.raises(SystemExit, match="A5"):
-            cli.main(["-P", ckpts[kind], "-i", song, "-r", str(SR), "-f",
-                      "256", "-H", "128", "-o", str(tmp_path / "pp"),
-                      "--gpu", "-1", "--stream", "--postprocess"])
+        cli.main(["-P", ckpts[kind], "-i", song, "-r", str(SR), "-f",
+                  "256", "-H", "128", "-o", str(tmp_path / "pp"),
+                  "--gpu", "-1", "--stream", "--postprocess"])
+        said = capsys.readouterr().out
+        assert "  stft: " in said and "streamed" not in said
         return
     assert "separate (streamed segments)" in said
     forced = _cli_stems(cli.main, ckpts[kind], song, tmp_path / "forced",

@@ -3,15 +3,25 @@
     python -m vocal_remover_tpu_torch.cli.inference -P ckpt.vrt.npz -i song.wav
     python -m vocal_remover_tpu_torch.cli.inference -P ckpt.vrt.npz --input_dir DIR
 
-Flag-compatible with vocal_remover_tpu/cli/inference.py:
-  * `-i`: one song through the device pipeline (STFT -> CascadedNet
-    masks -> iSTFT, PCM16 out, song lengths padded to 30 s buckets;
-    --exact_length turns that off), or, with --stream or above
-    STREAM_ABOVE_SECONDS of audio, through segment streaming (constant
-    device memory for any length; --postprocess runs there);
-  * `--input_dir`: every audio file of a directory through the pipelined
-    service, songs padded to 30 s buckets and `--group` equal-length songs
-    batched into one patch stream, vocals as mixture - instruments.
+Flag-compatible with vocal_remover_tpu/cli/inference.py, with its
+routing. `-i` takes, in this order:
+  * segment streaming (constant device memory for any length), with
+    --stream or above STREAM_ABOVE_SECONDS of audio, unless
+    --output_image is given or the checkpoint is complex;
+  * the device pipeline (STFT -> CascadedNet masks -> iSTFT, PCM16 out,
+    song lengths padded to 30 s buckets; --exact_length turns that off),
+    without --postprocess and --output_image;
+  * otherwise the spectrogram path: host STFT, `Separator.separate` /
+    `separate_tta` (masks on the device, `merge_artifacts` with
+    --postprocess), host iSTFT of each stem, and with --output_image
+    `<name>_Instruments.jpg` / `_Vocals.jpg` (`.png` without PIL).
+`--input_dir` runs every audio file of a directory through the pipelined
+service, songs padded to 30 s buckets and `--group` equal-length songs
+batched into one patch stream, vocals as mixture - instruments.
+Checkpoints: `.vrt.npz`, or a reference `.pth` state_dict. Input: WAV,
+FLAC, MP3 and AAC (.m4a / .mp4 / .aac) through the port's native
+decoders. `--profile DIR` writes a torch.profiler Chrome trace (CPU and,
+on a card, CUDA activity) of the separation into DIR.
 Unset performance flags resolve per mode as in the JAX CLI: `-i` crop
 256, batch 4, group 1, `highest`; `--input_dir` crop 1024, batch 24,
 group 8, `bfloat16`.
@@ -22,8 +32,9 @@ every band net as the flat pixel-packed CUDA kernel; `--precision`
 takes `highest` (full float32), `default` (TF32 on the card) and
 `bfloat16` (serving transform: folded BatchNorm, bf16 weights and
 activations). `--lstm_impl` is accepted for compatibility: on the card
-the BiLSTM recurrence always runs as the CUDA kernel. The other modes of
-the JAX CLI are refused with a message naming the slice that ports them.
+the BiLSTM recurrence always runs as the CUDA kernel. `--data_parallel`,
+`.vrtx` artifacts and `--precision int8` are refused with a message
+naming the slice that ports them.
 """
 
 from __future__ import annotations
@@ -43,18 +54,6 @@ DEFAULT_MODEL_PATH = os.path.join(MODEL_DIR, "baseline.vrt.npz")
 
 # single songs longer than this are separated by segment streaming
 STREAM_ABOVE_SECONDS = 20 * 60
-
-_SPECTROGRAM_PATH = ("the spectrogram path with merge_artifacts (a later "
-                     "slice, ROADMAP.md A5)")
-
-# flag -> the later slice of the port that brings it
-_LATER = {
-    "output_image": "the spectrogram path with images (a later slice, "
-                    "ROADMAP.md A5)",
-    "data_parallel": "multi-card inference (parallelism slice, ROADMAP.md "
-                     "A10)",
-    "profile": "tracing (a later slice)",
-}
 
 
 @contextlib.contextmanager
@@ -88,8 +87,7 @@ def build_parser():
     p.add_argument('--output_image', '-I', action='store_true')
     p.add_argument('--tta', '-t', action='store_true')
     p.add_argument('--postprocess', '-p', action='store_true',
-                   help='merge_artifacts on the mask (with --stream only, '
-                        'so far)')
+                   help='merge_artifacts on the mask')
     p.add_argument('--output_dir', '-o', type=str, default="")
     p.add_argument('--precision', type=str, default=None,
                    choices=['highest', 'default', 'bfloat16', 'int8'],
@@ -109,7 +107,9 @@ def build_parser():
                    help='fold the BatchNorms and run the band nets\' '
                         'enc2..enc3 convs as the flat pixel-packed CUDA '
                         'kernel (nn/conv_pack.py, csrc/flat_conv.cu)')
-    p.add_argument('--profile', type=str, default=None, metavar='DIR')
+    p.add_argument('--profile', type=str, default=None, metavar='DIR',
+                   help='write a torch.profiler Chrome trace of the '
+                        'separation into DIR')
     p.add_argument('--stream', action='store_true',
                    help='segment-streamed separation: constant device '
                         'memory for any length (on by itself above '
@@ -141,46 +141,59 @@ def resolve_defaults(args):
         args.precision = 'bfloat16' if dir_mode else 'highest'
 
 
-def _refuse_unported(parser, args):
+def _refuse_unported(args):
     if args.input_dir is not None and (args.postprocess or args.output_image):
         raise SystemExit("--input_dir uses the pure-device serving path; "
                          "--postprocess/--output_image require single-file "
                          "mode")
-    for flag, slice_name in _LATER.items():
-        if getattr(args, flag) != parser.get_default(flag):
-            raise SystemExit(f"--{flag} is not ported to the GPU package "
-                             f"yet: it comes with {slice_name}")
-    if args.postprocess and not args.stream:
-        raise SystemExit("--postprocess is not ported to the GPU package "
-                         "yet without --stream: it comes with "
-                         f"{_SPECTROGRAM_PATH}")
+    if args.data_parallel != 1:
+        raise SystemExit("--data_parallel is not ported to the GPU package "
+                         "yet: it comes with multi-card inference "
+                         "(parallelism slice, ROADMAP.md A10)")
     if args.precision == 'int8':
         raise SystemExit("--precision int8 is not ported to the GPU package "
                          "yet: it comes with int8 serving (ROADMAP.md A13)")
-    if not args.pretrained_model.endswith('.npz'):
-        raise SystemExit(f"{args.pretrained_model!r}: only .vrt.npz "
-                         "checkpoints are ported yet (.pth and .vrtx "
-                         "artifacts come with later slices)")
+    if args.pretrained_model.endswith('.vrtx'):
+        raise SystemExit(f"{args.pretrained_model!r}: .vrtx serving "
+                         "artifacts are not ported to the GPU package yet: "
+                         "they come with the export slice (ROADMAP.md A11)")
 
 
 def _input_files(input_dir: str):
     """The directory's audio files as the JAX CLI picks them (lower-cased
-    extension in INPUT_EXTS, sorted); exits when there is none, or when
-    one is a format the port cannot decode yet."""
+    extension in INPUT_EXTS, sorted); exits when there is none."""
     from vocal_remover_tpu_torch.data.pairing import INPUT_EXTS
-    from vocal_remover_tpu_torch.utils.audio import DECODABLE_EXTS
 
     files = sorted(
         os.path.join(input_dir, f) for f in os.listdir(input_dir)
         if os.path.splitext(f)[1].lower() in INPUT_EXTS)
     if not files:
         raise SystemExit(f"no audio files in {input_dir!r}")
-    for path in files:
-        if os.path.splitext(path)[1].lower() not in DECODABLE_EXTS:
-            raise SystemExit(f"{path!r}: only WAV input is ported to the GPU "
-                             "package yet; FLAC, MP3 and AAC decoding come "
-                             "with a later slice (ROADMAP.md A5)")
     return files
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """torch.profiler around the block, its Chrome trace written into
+    `trace_dir`; a no-op for None. The block is one `separation` span.
+    CPU activity is that of the calling thread (directory mode and
+    streaming run the model on worker threads); on a card, CUDA
+    activity covers every thread's kernels."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof, record_function("separation"):
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, time.strftime("separation-%Y%m%d-%H%M%S")
+                        + f"-{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"  profile: {path}", flush=True)
 
 
 def _output_prefix(output_dir: str) -> str:
@@ -200,10 +213,9 @@ def _write_stems(prefix, y_wave, v_wave, sr):
 
 
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     resolve_defaults(args)
-    _refuse_unported(parser, args)
+    _refuse_unported(args)
     files = _input_files(args.input_dir) if args.input_dir else None
 
     from vocal_remover_tpu_torch import resolve_device
@@ -224,10 +236,11 @@ def main(argv=None):
                 flat=args.flat_conv)
         model = model.to(device).eval()
 
-    if files is not None:
-        _run_batch(args, model, device, files)
-    else:
-        _run_single(args, model, device)
+    with _profiled(args.profile, device):
+        if files is not None:
+            _run_batch(args, model, device, files)
+        else:
+            _run_single(args, model, device)
 
 
 def _run_batch(args, model, device, files):
@@ -265,6 +278,7 @@ def _run_batch(args, model, device, files):
 
 
 def _run_single(args, model, device):
+    from vocal_remover_tpu_torch.separate.separator import Separator
     from vocal_remover_tpu_torch.utils import audio
 
     with _stage('load audio'):
@@ -274,15 +288,11 @@ def _run_single(args, model, device):
     prefix = _output_prefix(args.output_dir) + \
         os.path.splitext(os.path.basename(args.input))[0]
 
-    # the streamed path is magnitude-mask only: complex checkpoints take
-    # the monolithic pipeline whatever the length
-    streamed = ((args.stream or X.shape[-1] > STREAM_ABOVE_SECONDS * sr)
-                and not model.is_complex)
-    if args.postprocess and not streamed:
-        raise SystemExit("--postprocess is not ported to the GPU package "
-                         "yet off the streamed path: it comes with "
-                         f"{_SPECTROGRAM_PATH}")
-    if streamed:
+    # the streamed path is magnitude-mask only and writes no images:
+    # complex checkpoints and --output_image take the monolithic paths
+    # whatever the length
+    if ((args.stream or X.shape[-1] > STREAM_ABOVE_SECONDS * sr)
+            and not args.output_image and not model.is_complex):
         from vocal_remover_tpu_torch.separate.streaming import (
             StreamingSeparator,
         )
@@ -293,17 +303,44 @@ def _run_single(args, model, device):
                                 device=device, precision=args.precision)
         with _stage('separate (streamed segments)'):
             y_wave, v_wave = sp.separate_wave(X)
-    else:
-        from vocal_remover_tpu_torch.separate.separator import Separator
+        _write_stems(prefix, y_wave, v_wave, sr)
+        return
 
-        sp = Separator(model, batchsize=args.batchsize,
-                       cropsize=args.cropsize, device=device,
-                       precision=args.precision)
+    sp = Separator(model, batchsize=args.batchsize, cropsize=args.cropsize,
+                   device=device, precision=args.precision,
+                   postprocess=args.postprocess)
+    if not args.postprocess and not args.output_image:
         bucket = None if args.exact_length else 30 * sr
         with _stage('separate (device pipeline)'):
             y_wave, v_wave = sp.separate_wave(X, tta=args.tta, pcm16_io=True,
                                               bucket=bucket)
-    _write_stems(prefix, y_wave, v_wave, sr)
+        _write_stems(prefix, y_wave, v_wave, sr)
+        return
+
+    _run_spectrogram(args, sp, X, sr, prefix)
+
+
+def _run_spectrogram(args, sp, X, sr, prefix):
+    """The spectrogram path: host STFT, masks on the device, host iSTFT
+    of each stem at its natural length, images with --output_image."""
+    from vocal_remover_tpu_torch.ops import stft as stft_ops
+    from vocal_remover_tpu_torch.utils import audio, image, spec
+
+    with _stage('stft'):
+        X_spec = stft_ops.stft_np(X, args.n_fft, args.hop_length)
+    with _stage('separate'):
+        if args.tta:
+            y_spec, v_spec = sp.separate_tta(X_spec)
+        else:
+            y_spec, v_spec = sp.separate(X_spec)
+    for stem, s in (('Instruments', y_spec), ('Vocals', v_spec)):
+        with _stage(f'istft + write {stem.lower()}'):
+            audio.write_wav(f'{prefix}_{stem}.wav',
+                            stft_ops.istft_np(s, args.n_fft, args.hop_length),
+                            sr)
+    if args.output_image:
+        for stem, s in (('Instruments', y_spec), ('Vocals', v_spec)):
+            image.imwrite(f'{prefix}_{stem}.jpg', spec.spectrogram_to_image(s))
 
 
 if __name__ == '__main__':

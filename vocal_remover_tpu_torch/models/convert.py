@@ -1,4 +1,5 @@
-"""Checkpoint I/O: the native `.vrt.npz` format and the JAX variables tree.
+"""Checkpoint I/O: the native `.vrt.npz` format, the reference's `.pth`
+state_dicts and the JAX variables tree.
 
 Counterpart of vocal_remover_tpu/models/convert.py. A `.vrt.npz` holds
 the JAX package's variables tree flattened to '/'-joined keys (HWIO conv
@@ -216,15 +217,22 @@ def model_config(model) -> dict:
 
 def load_model(path: str, n_fft: int, hop_length: int, nout: int = 32,
                nout_lstm: int = 128):
-    """Build a CascadedNet (on the CPU) from a `.vrt.npz` checkpoint. The
-    checkpoint's embedded config wins over the arguments."""
+    """Build a CascadedNet (on the CPU) from a checkpoint: a native
+    `.vrt.npz`, whose embedded config wins over the arguments, or a
+    reference torch `.pth` state_dict, loaded strictly into
+    CascadedNet(n_fft, hop_length, nout, nout_lstm)."""
     from vocal_remover_tpu_torch.models.cascaded import CascadedNet
 
-    if not path.endswith(".npz"):
+    if path.endswith(".vrtx"):
         raise ValueError(
-            f"{path!r}: only native .vrt.npz checkpoints are ported yet "
-            "(.pth and .vrtx come with later slices)"
+            f"{path!r}: .vrtx serving artifacts are not ported yet (they "
+            "come with the export slice, ROADMAP.md A11)"
         )
+    if not path.endswith(".npz"):
+        model = CascadedNet(n_fft, hop_length, nout, nout_lstm)
+        model.load_state_dict(torch.load(path, map_location="cpu",
+                                         weights_only=True))
+        return model
     variables, config = load_native(path)
     model = CascadedNet(
         config.get("n_fft", n_fft),

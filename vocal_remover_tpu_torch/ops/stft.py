@@ -6,23 +6,34 @@ n_fft; the inverse overlap-adds the windowed frames, divides by the
 window sum of squares where it exceeds float32's tiny, trims n_fft // 2
 per side and then trims or zero-pads to `length`. Real and imaginary
 parts travel as a pair of real tensors, as in the JAX package.
+
+`stft_np` / `istft_np` are the host (numpy) mirrors of `stft_np` /
+`istft_np` there, for the spectrogram path (`Separator.separate`, the
+CLI's `--postprocess` / `--output_image`): a float64 window and
+overlap-add, `np.fft`, complex64 spectrograms.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 __all__ = ["hann_window", "num_frames", "frame_spectrum", "stft",
-           "overlap_add", "istft"]
+           "overlap_add", "istft", "stft_np", "istft_np"]
+
+
+def _hann_np(n_fft: int) -> np.ndarray:
+    """Periodic Hann window in float64."""
+    n = np.arange(n_fft)
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / n_fft)
 
 
 def hann_window(n_fft: int, device=None) -> torch.Tensor:
     """Periodic Hann window (float32), computed in float64 as the JAX
     package does."""
-    n = np.arange(n_fft)
-    w = (0.5 - 0.5 * np.cos(2.0 * np.pi * n / n_fft)).astype(np.float32)
-    return torch.from_numpy(w).to(device)
+    return torch.from_numpy(_hann_np(n_fft).astype(np.float32)).to(device)
 
 
 def num_frames(length: int, n_fft: int, hop_length: int) -> int:
@@ -84,3 +95,59 @@ def istft(real, imag, n_fft: int, hop_length: int, length: int | None = None):
         else:
             y = torch.nn.functional.pad(y, (0, length - y.shape[-1]))
     return y.reshape(*lead, y.shape[-1])
+
+
+@functools.lru_cache(maxsize=32)
+def _frame_indices(n_frames: int, n_fft: int, hop_length: int) -> np.ndarray:
+    return (np.arange(n_frames)[:, None] * hop_length
+            + np.arange(n_fft)[None, :]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _window_sumsquare(n_frames: int, n_fft: int,
+                      hop_length: int) -> np.ndarray:
+    """Sum of the squared synthesis windows over the overlap-add grid
+    (float32, as the JAX package keeps it)."""
+    w2 = _hann_np(n_fft) ** 2
+    out = np.zeros(n_fft + hop_length * (n_frames - 1), np.float64)
+    for t in range(n_frames):
+        out[t * hop_length:t * hop_length + n_fft] += w2
+    return out.astype(np.float32)
+
+
+def stft_np(wave: np.ndarray, n_fft: int, hop_length: int) -> np.ndarray:
+    """Host STFT: (..., length) -> complex64 (..., n_fft//2 + 1,
+    n_frames)."""
+    pad = n_fft // 2
+    x = np.pad(wave, [(0, 0)] * (wave.ndim - 1) + [(pad, pad)],
+               mode="reflect")
+    idx = _frame_indices(num_frames(wave.shape[-1], n_fft, hop_length),
+                         n_fft, hop_length)
+    frames = x[..., idx] * _hann_np(n_fft)
+    spec = np.fft.rfft(frames, axis=-1).astype(np.complex64)
+    return np.moveaxis(spec, -1, -2)
+
+
+def istft_np(spec: np.ndarray, n_fft: int, hop_length: int,
+             length: int | None = None) -> np.ndarray:
+    """Host iSTFT of a complex (..., n_bins, n_frames) array -> float32
+    (..., length); `length` None keeps the natural length."""
+    n_frames = spec.shape[-1]
+    frames = np.fft.irfft(np.moveaxis(spec, -1, -2), n=n_fft, axis=-1)
+    frames = frames * _hann_np(n_fft)
+    y = np.zeros(frames.shape[:-2] + (n_fft + hop_length * (n_frames - 1),),
+                 np.float64)
+    for t in range(n_frames):
+        y[..., t * hop_length:t * hop_length + n_fft] += frames[..., t, :]
+    wss = _window_sumsquare(n_frames, n_fft, hop_length).astype(np.float64)
+    tiny = np.finfo(np.float32).tiny
+    y = np.where(wss > tiny, y / np.maximum(wss, tiny), y)
+    pad = n_fft // 2
+    y = y[..., pad:y.shape[-1] - pad]
+    if length is not None:
+        if length <= y.shape[-1]:
+            y = y[..., :length]
+        else:
+            y = np.pad(y, [(0, 0)] * (y.ndim - 1)
+                       + [(0, length - y.shape[-1])])
+    return y.astype(np.float32)

@@ -20,6 +20,14 @@ Normalisation quirks kept from the reference: without TTA each song is
 scaled by its max|X| of the unpadded spectrogram; with TTA each pass is
 scaled by |numpy-lexicographic max| of the song's own padded
 spectrogram.
+
+The spectrogram API (`separate`, `separate_tta`; JAX separator.py
+`separate` / `separate_tta` / `_postprocess`, reference inference.py
+:70-102) takes a host complex64 (2, F, T) spectrogram and returns host
+`(y_spec, v_spec)`: the padding (patch count rounded up to whole
+chunks) and the normalisation on the host, the masks on the device by
+the same chunk loop, and with `postprocess` `merge_artifacts` on |mask|
+(the mask's phase kept) before mask * X and (1 - mask) * X.
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ from vocal_remover_tpu_torch.ops.stft import istft, num_frames, stft
 from vocal_remover_tpu_torch.ops.windowing import (
     extract_patches,
     make_padding,
+    num_patches,
     stitch_masks,
 )
 from vocal_remover_tpu_torch.utils.audio import pcm16_encode
+from vocal_remover_tpu_torch.utils.spec import merge_artifacts
 
 
 def _lexmax_abs(re, im):
@@ -67,12 +77,15 @@ def to_i16(w):
 
 class Separator:
     def __init__(self, model, batchsize: int = 4, cropsize: int = 256,
-                 device=None, precision: str = "highest"):
+                 device=None, precision: str = "highest",
+                 postprocess: bool = False):
         """Moves `model` to `device` (default `cuda`; raises without a
         card unless the CPU is asked for). Every separation runs under
         `precision` (nn/config.py; default full float32, no TF32). A
         serving-transformed model (models/serving.py) is taken as it
-        is; `bfloat16` pairs with bf16-cast weights."""
+        is; `bfloat16` pairs with bf16-cast weights. `postprocess`
+        applies `merge_artifacts` in the spectrogram API, which it
+        then requires."""
         if precision not in config.PRECISIONS:
             raise ValueError(f"precision {precision!r}: expected one of "
                              f"{config.PRECISIONS}")
@@ -82,6 +95,7 @@ class Separator:
         self.offset = model.offset
         self.batchsize = max(1, batchsize)
         self.cropsize = cropsize
+        self.postprocess = postprocess
 
     def _masks(self, re_pad, im_pad, inv_scale, roi):
         """Padded (S, 2, F, T) spectrograms and (S,) scales -> stitched
@@ -169,6 +183,10 @@ class Separator:
 
         pcm16_io: take and return int16 PCM (a float input is quantised
         on the host first)."""
+        if self.postprocess:
+            raise ValueError("separate_waves is the device pipeline; "
+                             "postprocess needs the spectrogram API "
+                             "(separate / separate_tta)")
         waves = np.asarray(waves)
         if waves.ndim != 3:
             raise ValueError("separate_waves expects a (S, 2, n) stack")
@@ -196,3 +214,65 @@ class Separator:
         y, v = self.separate_waves(np.asarray(wave)[None], tta, pcm16_io,
                                    only_instruments)
         return y[0, :, :n_orig], (None if v is None else v[0, :, :n_orig])
+
+    # the spectrogram API: host complex spectrograms in and out
+
+    def _pad_spec(self, X_spec: np.ndarray, extra_shift: int = 0):
+        """(2, F, T) -> (padded spectrogram, roi): the windowing's
+        padding, widened by `extra_shift` frames a side, and the right
+        side by whole patches up to a whole number of chunks."""
+        n_frame = X_spec.shape[2]
+        pad_l, pad_r, roi = make_padding(n_frame, self.cropsize, self.offset)
+        pad_l += extra_shift
+        pad_r += extra_shift
+        n = num_patches(pad_l + n_frame + pad_r, roi, self.offset)
+        pad_r += (-(-n // self.batchsize) * self.batchsize - n) * roi
+        return np.pad(X_spec, ((0, 0), (0, 0), (pad_l, pad_r))), roi
+
+    @torch.inference_mode()
+    def _spec_mask(self, X_pad: np.ndarray, roi: int,
+                   inv_scale) -> np.ndarray:
+        """Padded complex spectrogram -> host mask over its padded
+        interior: real for magnitude models, complex for complex ones."""
+        def upload(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a, np.float32)[None]).to(self.device)
+
+        scale = torch.tensor([inv_scale], dtype=torch.float32,
+                             device=self.device)
+        with config.precision(self.precision):
+            mask = self._masks(upload(X_pad.real), upload(X_pad.imag),
+                               scale, roi)[0].cpu().numpy()
+        if self.model.is_complex:
+            mask = mask[:2] + 1j * mask[2:]
+        return mask
+
+    def separate(self, X_spec: np.ndarray):
+        """(2, F, T) complex spectrogram -> (y_spec, v_spec)."""
+        n_frame = X_spec.shape[2]
+        X_pad, roi = self._pad_spec(X_spec)
+        inv_scale = np.float32(1.0 / np.abs(X_spec).max())
+        mask = self._spec_mask(X_pad, roi, inv_scale)[:, :, :n_frame]
+        return self._postprocess(X_spec, mask)
+
+    def separate_tta(self, X_spec: np.ndarray):
+        """TTA: a second pass shifted by roi // 2 frames, the two masks
+        averaged; each pass scaled by its own padded spectrogram's
+        |lexicographic max|."""
+        n_frame = X_spec.shape[2]
+        X_pad, roi = self._pad_spec(X_spec)
+        inv_scale = np.float32(1.0 / np.abs(X_pad.max()))
+        mask = self._spec_mask(X_pad, roi, inv_scale)[:, :, :n_frame]
+
+        X_pad2, _ = self._pad_spec(X_spec, extra_shift=roi // 2)
+        inv_scale2 = np.float32(1.0 / np.abs(X_pad2.max()))
+        mask_tta = self._spec_mask(X_pad2, roi, inv_scale2)[:, :, roi // 2:]
+        mask = (mask + mask_tta[:, :, :n_frame]) * 0.5
+        return self._postprocess(X_spec, mask)
+
+    def _postprocess(self, X_spec, mask):
+        if self.postprocess:
+            mask = merge_artifacts(np.abs(mask)) * np.exp(1.0j * np.angle(mask))
+        X_mag = np.abs(X_spec)
+        X_phase = np.exp(1.0j * np.angle(X_spec))
+        return mask * X_mag * X_phase, (1 - mask) * X_mag * X_phase

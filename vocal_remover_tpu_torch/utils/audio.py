@@ -1,27 +1,30 @@
-"""WAV audio I/O, resampling and PCM16 encoding (numpy/scipy).
+"""Audio I/O, resampling and PCM16 encoding (numpy/scipy).
 
 The port's own counterpart of vocal_remover_tpu/utils/audio.py and
-native `pcm16_encode`: WAV decode (PCM 8/16/24/32, float32/float64), WAV
-encode as 16-bit PCM (soundfile's WAV default, what the reference
-writes), and band-limited sinc resampling with the
-reference's `kaiser_fast` (utils/resample.py). Compressed formats (FLAC,
-MP3, AAC) come with a later slice. Waves are float32, channel-first
-(C, L).
+native `pcm16_encode`: WAV decode (PCM 8/16/24/32, float32/float64),
+FLAC, MP3 and AAC (AAC-LC and HE-AAC in .m4a / .mp4 / raw .aac ADTS)
+through the port's native decoders (native/), ffmpeg for a stream they
+reject when ffmpeg is on PATH, WAV encode as 16-bit PCM (soundfile's WAV
+default, what the reference writes), and band-limited sinc resampling
+with the reference's `kaiser_fast` (utils/resample.py). Waves are
+float32, channel-first (C, L).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
+import tempfile
 import wave as _wave
 
 import numpy as np
 from scipy.io import wavfile
 
-__all__ = ["DECODABLE_EXTS", "load", "read_wav", "write_wav", "resample",
-           "pcm16_encode"]
+__all__ = ["load", "read_wav", "read_flac", "read_mp3",
+           "read_aac", "write_wav", "resample", "pcm16_encode"]
 
-# the extensions `load` decodes in this slice
-DECODABLE_EXTS = (".wav",)
+_FFMPEG = shutil.which("ffmpeg")
 
 
 def pcm16_encode(wave: np.ndarray) -> np.ndarray:
@@ -79,16 +82,71 @@ def resample(wave: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return _sinc.resample(wave, orig_sr, target_sr, "kaiser_fast")
 
 
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def read_flac(path: str) -> tuple[np.ndarray, int]:
+    """Read a FLAC file -> ((C, L) float32 in [-1, 1], sample_rate)."""
+    from vocal_remover_tpu_torch import native
+
+    pcm, sr, bps = native.flac_decode(_read(path))
+    wave = pcm.astype(np.float32) / float(1 << (bps - 1))
+    return np.ascontiguousarray(wave.T), int(sr)
+
+
+def read_mp3(path: str) -> tuple[np.ndarray, int]:
+    """Read an MP3 file (MPEG-1/2/2.5 Layer III) -> ((C, L) float32,
+    sample_rate)."""
+    from vocal_remover_tpu_torch import native
+
+    wave, sr = native.mp3_decode(_read(path))
+    return np.ascontiguousarray(wave.T), int(sr)
+
+
+def read_aac(path: str) -> tuple[np.ndarray, int]:
+    """Read an AAC file (.m4a / .mp4 container or raw .aac ADTS; AAC-LC
+    or HE-AAC) -> ((C, L) float32, sample_rate)."""
+    from vocal_remover_tpu_torch import native
+
+    wave, sr = native.aac_decode(_read(path))
+    return np.ascontiguousarray(wave.T), int(sr)
+
+
+def _load_via_ffmpeg(path: str) -> tuple[np.ndarray, int]:
+    if _FFMPEG is None:
+        raise RuntimeError(
+            f"cannot decode {path!r}: the native decoders reject it or do "
+            "not read its format, and ffmpeg is not on PATH")
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "decoded.wav")
+        subprocess.run([_FFMPEG, "-v", "error", "-i", path, "-f", "wav",
+                        "-c:a", "pcm_f32le", out], check=True)
+        return read_wav(out)
+
+
+# extension -> the reader that decodes it without ffmpeg
+_READERS = {".wav": read_wav, ".flac": read_flac, ".mp3": read_mp3,
+            ".m4a": read_aac, ".mp4": read_aac, ".aac": read_aac}
+
+
 def load(path: str, sr: int | None = 44100) -> tuple[np.ndarray, int]:
     """librosa.load(mono=False)-style: ((C, L) float32, or (L,) for a
-    one-channel file, sample rate), resampled to `sr` when given. WAV
-    only in this slice."""
-    if os.path.splitext(path)[1].lower() not in DECODABLE_EXTS:
-        raise ValueError(
-            f"{path!r}: only WAV input is ported yet; FLAC, MP3 and AAC "
-            "come with a later slice"
-        )
-    wave, file_sr = read_wav(path)
+    one-channel file, sample rate), resampled to `sr` when given. A
+    compressed stream that its native decoder rejects (ValueError) goes
+    to ffmpeg, as in the JAX package; a decoder that fails to build
+    raises."""
+    reader = _READERS.get(os.path.splitext(path)[1].lower())
+    if reader is None:
+        wave, file_sr = _load_via_ffmpeg(path)
+    elif reader is read_wav:
+        wave, file_sr = read_wav(path)
+    else:
+        try:
+            wave, file_sr = reader(path)
+        except ValueError:
+            wave, file_sr = _load_via_ffmpeg(path)
     if sr is not None and file_sr != sr:
         wave = resample(wave, file_sr, sr)
         file_sr = sr

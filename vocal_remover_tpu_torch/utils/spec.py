@@ -1,8 +1,9 @@
 """Host-side spectrogram utilities (numpy).
 
 Counterpart of vocal_remover_tpu/utils/spec.py `merge_artifacts`, the
-`--postprocess` mask refinement (reference lib/spec_utils.py:60-93). Its
-run-length thresholds and fade bookkeeping are its contract, so the
+`--postprocess` mask refinement (reference lib/spec_utils.py:60-93), and
+`spectrogram_to_image`, the `--output_image` dump (:34-57). Their
+thresholds, fade bookkeeping and uint8 scaling are their contract, so the
 arithmetic follows the reference step for step.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["merge_artifacts"]
+__all__ = ["merge_artifacts", "spectrogram_to_image"]
 
 
 def merge_artifacts(y_mask, thres=0.05, min_range=64, fade_size=32):
@@ -51,3 +52,26 @@ def merge_artifacts(y_mask, thres=0.05, min_range=64, fade_size=32):
 
     y_mask += weight * (1 - y_mask)
     return y_mask
+
+
+def spectrogram_to_image(spec, mode="magnitude"):
+    """Log-power (or phase) spectrogram -> uint8 image; a (C, F, T)
+    spectrogram gives an (F, T, C + 1) image whose first channel is the
+    max over the others."""
+    if mode == "magnitude":
+        y = np.abs(spec) if np.iscomplexobj(spec) else spec
+        y = np.log10(y ** 2 + 1e-8)
+    elif mode == "phase":
+        y = np.angle(spec) if np.iscomplexobj(spec) else spec
+    else:
+        raise ValueError(mode)
+
+    y = y - y.min()
+    y = y * (255 / y.max())
+    img = np.uint8(y)
+
+    if y.ndim == 3:
+        img = img.transpose(1, 2, 0)
+        img = np.concatenate([np.max(img, axis=2, keepdims=True), img], axis=2)
+
+    return img
