@@ -7,7 +7,8 @@ NVIDIA Hopper card.
 Phases (each prints a line; any failure exits non-zero):
   1. card: name, capability (9, 0), nvidia-smi name and power limit;
   2. build: every CUDA kernel of the port, from csrc/, in parallel (one
-     nvcc per source);
+     nvcc per source); then the native audio decoders (native/), timed
+     on a line of their own, so that [spec]'s FLAC run decodes warm;
   3. kernels: each kernel against its plain PyTorch version on the card
      at the main paths' shapes (max abs error against a stated
      tolerance, kernel / plain / library times from CUDA events,
@@ -66,6 +67,18 @@ Phases (each prints a line; any failure exits non-zero):
      against the monolithic --exact_length stems (1 LSB), the same with
      --tta, --stream --postprocess and --stream in bf16, each with its
      launch counts, residual and xRT;
+  7b. export ([export]): the flagship checkpoint through the export CLI
+     on the card in bfloat16 and highest at crops 256 and 1024 (export
+     seconds, file size, load seconds); the recurrence's custom op under
+     torch.library.opcheck and against its plain version on the card;
+     the 60 s song through -P model.vrtx, first and warm, in both
+     precisions: 30 recurrence launches a run, stems within 1 LSB of the
+     .vrt.npz run at the same precision, walls side by side; the 1024
+     entry at batch 24 against the .vrt.npz run (1 LSB); [dir]'s songs
+     through --input_dir on the bf16 artifact against [dir]'s .vrt.npz
+     stems (0 LSB); the file written on the card loaded on the CPU, and
+     the card's programs moved to the CPU: one chunk of masks each
+     against the card's (CROSS_DEVICE_TOL);
   8. lab path: the port's two conv tools at their default shapes and dtype
      (scripts/conv_kernel_lab.py: variants A, C, D chained and checked
      against conv2d; scripts/bench_conv_kernel.py: variant A against the
@@ -186,6 +199,19 @@ def phase_build(kernels):
     print(f"[build] {len(paths)} kernel(s) in "
           f"{time.perf_counter() - t0:.2f}s: "
           + ", ".join(os.path.basename(p) for p in paths), flush=True)
+
+
+def phase_native_build():
+    """The native audio decoders, built before [spec]: its FLAC run's
+    `load audio` stage is then a warm decode."""
+    from vocal_remover_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    native_build.load()
+    print(f"[build] native decoders: {time.perf_counter() - t0:.2f} s "
+          f"({os.path.basename(native_build.build())}, "
+          f"{native_build.compiler()} {' '.join(native_build.CFLAGS)})",
+          flush=True)
 
 
 def recurrence_cases():
@@ -998,6 +1024,8 @@ def phase_dir(tmp, ckpt, seed, counters, per_chunk):
           f"{total_s / single:.2f} x real time, {len(paths) / single:.3f} "
           f"songs/s; directory mode warm {single / wall:.2f}x faster",
           flush=True)
+    return {"song_dir": song_dir, "names": names, "mixes": mixes,
+            "chunks": chunks, "bf16_dir": bf16_dir}
 
 
 STREAM_SECONDS = 150  # two streamed segments plus a tail
@@ -1273,6 +1301,173 @@ def phase_spec(tmp, ckpt, seed, counters, per_chunk, smi):
         print(line, flush=True)
 
 
+EXPORT_PRECISIONS = ("bfloat16", "highest")  # the export CLI's default first
+EXPORT_CROPS = (256, 1024)
+# one chunk of masks of the card's artifact against the same file on the
+# CPU, in highest (the port's forward against JAX's on the CPU: 5e-5)
+CROSS_DEVICE_TOL = 5e-5
+
+
+def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
+    """The export slice: the flagship checkpoint through the export CLI
+    on the card in bf16 and highest at crops 256 and 1024; the
+    recurrence op checked on the card; the 60 s song through `-P
+    model.vrtx` (first, warm) against the `.vrt.npz` run at the same
+    precision; the 1024 entry at batch 24; [dir]'s songs through
+    --input_dir on the bf16 artifact against [dir]'s `.vrt.npz` stems;
+    the card's file loaded on the CPU, and the card's programs moved
+    there. -> the warm artifact runs' launches, by precision."""
+    from vocal_remover_tpu_torch.cli import export as export_cli
+    from vocal_remover_tpu_torch.nn import lstm_kernel
+    from vocal_remover_tpu_torch.separate import artifact
+
+    arts = {}
+    for prec in EXPORT_PRECISIONS:
+        path = os.path.join(tmp, f"flagship-{prec}.vrtx")
+        t0 = time.perf_counter()
+        quiet(export_cli.main, [ckpt, path, "--precision", prec,
+                                "--cropsizes",
+                                ",".join(map(str, EXPORT_CROPS))])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        am = artifact.load_artifact(path, device="cuda")
+        for crop in EXPORT_CROPS:
+            am.program(crop)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        check(am.meta["precision"] == prec and am.meta["platforms"] ==
+              ["cuda"] and am.cropsizes == list(EXPORT_CROPS),
+              f"export {prec}: meta {am.meta}")
+        arts[prec] = (path, am)
+        print(f"[export] {prec}: export CLI on the card {export_s:.2f} s "
+              f"(crops {list(EXPORT_CROPS)}, batch symbolic), file {size} "
+              f"bytes ({size / 2**20:.1f} MiB, weights "
+              f"{am.meta['weights_dtype']}), load_artifact + both entries "
+              f"onto the card {load_s:.2f} s; torch "
+              f"{am.meta['torch_version']}; {smi}", flush=True)
+
+    op = torch.ops.vocal_remover_tpu_torch.lstm_recurrence.default
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    for t_len, two_n, hidden in ((128, 8, 64), (512, 48, 64)):
+        xg = torch.randn(t_len, two_n, 4 * hidden, device="cuda",
+                         generator=gen)
+        w_hh = torch.randn(2, hidden, 4 * hidden, device="cuda",
+                           generator=gen) / hidden ** 0.5
+        w_cols = lstm_kernel.relayout(w_hh)
+        torch.library.opcheck(op, (xg, w_cols),
+                              test_utils=("test_schema", "test_faketensor"))
+        out = op(xg, w_cols)
+        torch.cuda.synchronize()
+        err = (out - lstm_kernel.recurrence_plain(xg, w_hh)).abs().max().item()
+        check(err <= 2e-5, f"op T={t_len}: max abs err {err} > 2e-5")
+        print(f"[export] op vocal_remover_tpu_torch::lstm_recurrence on the "
+              f"card: opcheck (schema, fake tensor) passed; T={t_len} "
+              f"2N={two_n} H={hidden} vs recurrence_plain max_abs_err "
+              f"{err:.3g} (tol 2e-5)", flush=True)
+
+    song = os.path.join(tmp, "song.wav")
+    mix = read_mix(song)
+
+    def serve(label, model, src, flags, n_chunks, names=("song",)):
+        """One CLI run, from the library's TF32 default as [main] does
+        (what the artifact sets is what is tested); launch counts,
+        stems' shape and residual checked. -> (wall, launches, stages,
+        peak GiB, {name: stems})."""
+        out_dir = os.path.join(tmp, "export-" + label.replace(" ", "-"))
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.reset_peak_memory_stats()
+        src_flag = "--input_dir" if os.path.isdir(src) else "-i"
+        (wall, launches), stages = quiet(
+            run_cli, ["-P", model, src_flag, src, "-o", out_dir] + flags,
+            counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, got in launches.items():
+            want = per_chunk[k] * n_chunks if k == "lstm_recurrence" else 0
+            check(got == want, f"export {label}: {k} launched {got} times, "
+                               f"want {want} ({n_chunks} chunks)")
+        stems = {}
+        for name in names:
+            y, v = stems[name] = read_stems(out_dir, name)
+            ref = read_mix(os.path.join(src, f"{name}.wav")
+                           if os.path.isdir(src) else src)
+            check(y.shape == v.shape == ref.shape,
+                  f"export {label} {name}: stem shape {y.shape}")
+            resid = residual_lsb(y, v, ref)
+            check(resid <= 2, f"export {label} {name}: |Instruments + "
+                              f"Vocals - mixture| = {resid} LSB > 2")
+        return wall, launches, stages, peak, stems
+
+    def lsb(a, b):
+        return max(int(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    chunks = -(-patch_count(mix.shape[-1], 256) // 4)
+    warm = {}
+    for prec in EXPORT_PRECISIONS:
+        path = arts[prec][0]
+        w0, _, st0, _, ref = serve(f"npz {prec}", ckpt, song,
+                                   ["--precision", prec], chunks)
+        for run in ("first", "warm"):
+            # no --precision: the artifact runs in its own mode
+            w, launches, st, peak, got = serve(f"vrtx {prec} {run}", path,
+                                               song, [], chunks)
+            d = lsb(got["song"], ref["song"])
+            check(d <= 1, f"export {prec} {run}: stems vs the .vrt.npz run "
+                          f"{d} LSB > 1")
+            warm[prec] = launches
+            print(f"[export] {prec} -P flagship-{prec}.vrtx {run}: {w:.3f} s "
+                  f"wall ({SONG_SECONDS / w:.2f} x real time; stages {st}), "
+                  f".vrt.npz --precision {prec} {w0:.3f} s (stages {st0}); "
+                  f"launches {launches} ({chunks} chunks); vs the .vrt.npz "
+                  f"run max {d} LSB (tol 1); peak device memory {peak:.2f} "
+                  f"GiB", flush=True)
+
+    wide = ["--cropsize", "1024", "--batchsize", "24"]
+    n_wide = -(-patch_count(mix.shape[-1], 1024) // 24)
+    w0, _, _, _, ref = serve("npz 1024", ckpt, song, wide, n_wide)
+    w, launches, st, peak, got = serve("vrtx 1024", arts["highest"][0], song,
+                                       wide, n_wide)
+    d = lsb(got["song"], ref["song"])
+    check(d <= 1, f"export crop 1024: stems vs the .vrt.npz run {d} LSB > 1")
+    print(f"[export] highest -P flagship-highest.vrtx {' '.join(wide)}: "
+          f"{w:.3f} s wall (stages {st}), .vrt.npz {w0:.3f} s; launches "
+          f"{launches} ({n_wide} chunk); vs the .vrt.npz run max {d} LSB "
+          f"(tol 1); peak device memory {peak:.2f} GiB", flush=True)
+
+    names = dir_run["names"]
+    w, launches, st, peak, got = serve(
+        "vrtx dir", arts["bfloat16"][0], dir_run["song_dir"], [],
+        dir_run["chunks"], names)
+    d = max(lsb(got[name], read_stems(dir_run["bf16_dir"], name))
+            for name in names)
+    check(d == 0, f"export dir: stems vs [dir]'s .vrt.npz run {d} LSB > 0")
+    print(f"[export] bf16 artifact --input_dir ({len(names)} songs, "
+          f"directory defaults): {w:.3f} s wall (stages {st}); launches "
+          f"{launches} ({dir_run['chunks']} chunks); every song vs [dir]'s "
+          f".vrt.npz run max {d} LSB (tol 0); peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+
+    path, am = arts["highest"]
+    x = torch.rand(4, 2, 1025, 256,
+                   generator=torch.Generator().manual_seed(seed + 8))
+    with torch.inference_mode():
+        card = am(x.cuda()).cpu()
+        t0 = time.perf_counter()
+        loaded = artifact.load_artifact(path, device="cpu")(x)
+        cpu_s = time.perf_counter() - t0
+        moved = am.to("cpu")(x)  # the card's programs moved back
+    err = [(card - m).abs().max().item() for m in (loaded, moved)]
+    check(max(err) <= CROSS_DEVICE_TOL, f"export cross-device: card vs CPU "
+          f"masks max abs err {err} > {CROSS_DEVICE_TOL}")
+    print(f"[export] flagship-highest.vrtx written on the card: one chunk of "
+          f"masks (4, 2, 1025, 256) on the card vs the file loaded on the "
+          f"CPU (load + chunk {cpu_s:.2f} s) max_abs_err {err[0]:.3g}, vs "
+          f"the card's programs moved to the CPU {err[1]:.3g} (tol "
+          f"{CROSS_DEVICE_TOL})", flush=True)
+    del arts, am
+    gc.collect()
+    return warm
+
+
 def phase_profile(ckpt, seed):
     """Device time by kernel name for one warm 60 s separation on each
     path."""
@@ -1389,6 +1584,7 @@ def main():
     name, smi = phase_card()
     config.set_precision("highest")
     phase_build(kernels)
+    phase_native_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rec_rows = phase_recurrence(gen)
     flat_rows = phase_flat_conv(args.seed)
@@ -1400,19 +1596,24 @@ def main():
         ckpt, results = phase_main_path(tmp, args.seed, counters, per_chunk)
         phase_reference(tmp, ckpt, args.seed)
         phase_spec(tmp, ckpt, args.seed, counters, per_chunk, smi)
-        phase_dir(tmp, ckpt, args.seed, counters, per_chunk)
+        dir_run = phase_dir(tmp, ckpt, args.seed, counters, per_chunk)
         phase_stream(tmp, ckpt, args.seed, counters, per_chunk)
+        export_launches = phase_export(tmp, ckpt, args.seed, counters,
+                                       per_chunk, smi, dir_run)
         if args.profile:
             phase_profile(ckpt, args.seed)
     lab_launches = phase_lab(counters)
 
-    # one record per kernel. The two kernels of the model: launches on the
-    # --flat_conv path (warm run), largest error over the f32 cases, times
-    # at the flagship's largest launch (recurrence T = 128, 2N = 8, H = 64;
-    # flat conv stg3_full_band_net enc2_conv2 in f32). The three
-    # channel-major conv kernels: launches on the lab path, error and
-    # times at the lab's first shape in its default dtype (bf16).
+    # one record per kernel. The two kernels of the model: launches of
+    # the recurrence on this slice's path (-P model.vrtx, the highest
+    # artifact's warm run) and of the flat conv on the --flat_conv path
+    # (warm run), largest error over the f32 cases, times at the
+    # flagship's largest launch (recurrence T = 128, 2N = 8, H = 64; flat
+    # conv stg3_full_band_net enc2_conv2 in f32). The three channel-major
+    # conv kernels: launches on the lab path, error and times at the
+    # lab's first shape in its default dtype (bf16).
     launches = dict(results["flat", "warm"]["launches"])
+    launches["lstm_recurrence"] = export_launches["highest"]["lstm_recurrence"]
     shown = {
         "lstm_recurrence": (rec_rows[0], rec_rows),
         "flat_conv": (

@@ -18,7 +18,10 @@ routing. `-i` takes, in this order:
 `--input_dir` runs every audio file of a directory through the pipelined
 service, songs padded to 30 s buckets and `--group` equal-length songs
 batched into one patch stream, vocals as mixture - instruments.
-Checkpoints: `.vrt.npz`, or a reference `.pth` state_dict. Input: WAV,
+Checkpoints: `.vrt.npz`, or a reference `.pth` state_dict; or a `.vrtx`
+serving artifact (cli/export.py; `--cropsize` must be one of its widths,
+the serving transform and the compute dtype are baked in, so
+`--flat_conv` has no effect on it). Input: WAV,
 FLAC, MP3 and AAC (.m4a / .mp4 / .aac) through the port's native
 decoders. `--profile DIR` writes a torch.profiler Chrome trace (CPU and,
 on a card, CUDA activity) of the separation into DIR.
@@ -32,9 +35,9 @@ every band net as the flat pixel-packed CUDA kernel; `--precision`
 takes `highest` (full float32), `default` (TF32 on the card) and
 `bfloat16` (serving transform: folded BatchNorm, bf16 weights and
 activations). `--lstm_impl` is accepted for compatibility: on the card
-the BiLSTM recurrence always runs as the CUDA kernel. `--data_parallel`,
-`.vrtx` artifacts and `--precision int8` are refused with a message
-naming the slice that ports them.
+the BiLSTM recurrence always runs as the CUDA kernel. `--data_parallel`
+and `--precision int8` are refused with a message naming the slice that
+ports them.
 """
 
 from __future__ import annotations
@@ -153,10 +156,6 @@ def _refuse_unported(args):
     if args.precision == 'int8':
         raise SystemExit("--precision int8 is not ported to the GPU package "
                          "yet: it comes with int8 serving (ROADMAP.md A13)")
-    if args.pretrained_model.endswith('.vrtx'):
-        raise SystemExit(f"{args.pretrained_model!r}: .vrtx serving "
-                         "artifacts are not ported to the GPU package yet: "
-                         "they come with the export slice (ROADMAP.md A11)")
 
 
 def _input_files(input_dir: str):
@@ -219,21 +218,24 @@ def main(argv=None):
     files = _input_files(args.input_dir) if args.input_dir else None
 
     from vocal_remover_tpu_torch import resolve_device
-    from vocal_remover_tpu_torch.models import convert
 
     device = resolve_device("cpu" if args.gpu < 0 else f"cuda:{args.gpu}")
     with _stage('load model'):
-        model = convert.load_model(args.pretrained_model, args.n_fft,
-                                   args.hop_length, 32, 128)
-        if args.precision == 'bfloat16' or args.flat_conv:
-            # serving transform: eval-BN folding, bf16-resident weights
-            # for the bf16 mode, packed enc2/enc3 weights for --flat_conv;
-            # 'highest' / 'default' keep float32 weights
-            from vocal_remover_tpu_torch.models import serving
+        if args.pretrained_model.endswith('.vrtx'):
+            # AOT serving artifact: the weights and the serving transform
+            # are baked into the exported programs (separate/artifact.py)
+            from vocal_remover_tpu_torch.separate.artifact import (
+                load_artifact,
+            )
 
-            model = serving.serving_variables(
-                model, 'bfloat16' if args.precision == 'bfloat16' else None,
-                flat=args.flat_conv)
+            model = load_artifact(args.pretrained_model, device)
+            if args.cropsize not in model.cropsizes:
+                raise SystemExit(
+                    f"artifact carries cropsizes {model.cropsizes}; "
+                    f"pass --cropsize one of those (got {args.cropsize})")
+            model.program(args.cropsize)  # deserialized in this stage
+        else:
+            model = _load_checkpoint(args)
         model = model.to(device).eval()
 
     with _profiled(args.profile, device):
@@ -241,6 +243,25 @@ def main(argv=None):
             _run_batch(args, model, device, files)
         else:
             _run_single(args, model, device)
+
+
+def _load_checkpoint(args):
+    """The CascadedNet of a `.vrt.npz` / `.pth`, serving-transformed for
+    `bfloat16` and `--flat_conv`, on the CPU."""
+    from vocal_remover_tpu_torch.models import convert
+
+    model = convert.load_model(args.pretrained_model, args.n_fft,
+                               args.hop_length, 32, 128)
+    if args.precision == 'bfloat16' or args.flat_conv:
+        # serving transform: eval-BN folding, bf16-resident weights for
+        # the bf16 mode, packed enc2/enc3 weights for --flat_conv;
+        # 'highest' / 'default' keep float32 weights
+        from vocal_remover_tpu_torch.models import serving
+
+        model = serving.serving_variables(
+            model, 'bfloat16' if args.precision == 'bfloat16' else None,
+            flat=args.flat_conv)
+    return model
 
 
 def _run_batch(args, model, device, files):

@@ -11,6 +11,8 @@ and the port's modules, whose state_dict keys are the reference's.
 (models/serving.py) back as the JAX package's transformed tree: folded
 conv kernels, identity-BN shifts, and `<band net>/flat_enc/<layer>/wst`
 and `bias`; `weight_dtypes` gives each leaf's resident dtype.
+`load_checkpoint` loads either format into a model and `export_torch`
+writes one as a `.pth` (cli/convert.py).
 """
 
 from __future__ import annotations
@@ -225,14 +227,12 @@ def load_model(path: str, n_fft: int, hop_length: int, nout: int = 32,
 
     if path.endswith(".vrtx"):
         raise ValueError(
-            f"{path!r}: .vrtx serving artifacts are not ported yet (they "
-            "come with the export slice, ROADMAP.md A11)"
+            f"{path!r} is a serving artifact, not a checkpoint: load it "
+            "with vocal_remover_tpu_torch.separate.artifact.load_artifact"
         )
     if not path.endswith(".npz"):
-        model = CascadedNet(n_fft, hop_length, nout, nout_lstm)
-        model.load_state_dict(torch.load(path, map_location="cpu",
-                                         weights_only=True))
-        return model
+        return load_checkpoint(path, CascadedNet(n_fft, hop_length, nout,
+                                                 nout_lstm))
     variables, config = load_native(path)
     model = CascadedNet(
         config.get("n_fft", n_fft),
@@ -242,3 +242,30 @@ def load_model(path: str, n_fft: int, hop_length: int, nout: int = 32,
         bool(config.get("is_complex", False)),
     )
     return from_jax_variables(model, variables)
+
+
+def load_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a native `.npz` / `.vrt.npz` or a reference torch `.pth`
+    checkpoint into `model`, in place (JAX `load_checkpoint`). A `.pth`
+    loads strictly; a native file whose config disagrees with the model
+    on is_complex, n_fft or nout is refused."""
+    if not path.endswith(".npz"):
+        model.load_state_dict(torch.load(path, map_location="cpu",
+                                         weights_only=True))
+        return model
+    variables, config = load_native(path)
+    for key in ("is_complex", "n_fft", "nout"):
+        want, have = getattr(model, key, None), config.get(key)
+        if have is not None and want is not None and have != want:
+            raise ValueError(
+                f"checkpoint {path!r} was trained with {key}={have} but the "
+                f"model is configured with {key}={want} (pass the matching "
+                "flags, e.g. --complex)")
+    return from_jax_variables(model, variables)
+
+
+def export_torch(path: str, model: torch.nn.Module):
+    """Write the model's weights as a reference-compatible torch
+    state_dict (CPU tensors, the reference's keys)."""
+    torch.save({k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()}, path)

@@ -2,11 +2,21 @@
 
 Counterpart of vocal_remover_tpu/nn/lstm_pallas.py `_run_recurrence`.
 The kernel is csrc/lstm_recurrence.cu (see its header for the design and
-what bounds it). `recurrence` launches it for CUDA tensors and takes the
-plain PyTorch loop `recurrence_plain` only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises. The kernel takes the recurrent
-weights one row per gate column (`relayout`); nn/lstm.py stacks them so
-once per call and calls `recurrence_cols`.
+what bounds it). The recurrence is the custom op
+`torch.ops.vocal_remover_tpu_torch.lstm_recurrence(xg, w_cols)`
+(`torch.library`): its CUDA implementation launches the kernel, its CPU
+implementation is the plain PyTorch loop `recurrence_plain`, and any
+other device raises. `recurrence` and `recurrence_cols` call the op on
+both devices, so `torch.export` records one opaque node (its fake
+function gives the output's shape) whatever device it traces on, and a
+loaded artifact (separate/artifact.py) reaches the kernel through it:
+import this module before `torch.export.load`. The kernel takes the
+recurrent weights one row per gate column (`relayout`); nn/lstm.py
+stacks them so once per call and calls `recurrence_cols`.
+
+The op has no autograd formula (a backward kernel is ROADMAP.md A9(b)):
+a loss that reaches the recurrence raises in `backward`, on the CPU as
+on the card, rather than getting no gradient through the branch.
 """
 
 from __future__ import annotations
@@ -17,8 +27,8 @@ import torch
 
 from vocal_remover_tpu_torch import build
 
-# kernel launches made by `recurrence_cols` in this process (plain-version
-# calls are not counted)
+# kernel launches made by the op's CUDA implementation in this process
+# (plain-version calls are not counted)
 launches = 0
 
 def relayout(w_hh: torch.Tensor) -> torch.Tensor:
@@ -72,13 +82,10 @@ def _check(xg: torch.Tensor, w: torch.Tensor, cols: bool):
 def recurrence(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """xg (T, 2N, 4H) f32, w_hh (2, H, 4H) f32 -> hs (T, 2N, H) f32.
 
-    CUDA tensors: the hand-written kernel (`recurrence_cols` on the
-    `relayout` of w_hh), on the current stream. CPU tensors:
-    `recurrence_plain`."""
+    The op on the `relayout` of w_hh: CUDA tensors run the hand-written
+    kernel on the current stream, CPU tensors `recurrence_plain`."""
     _check(xg, w_hh, cols=False)
-    if xg.device.type == "cpu":
-        return recurrence_plain(xg, w_hh)
-    return recurrence_cols(xg, relayout(w_hh))
+    return lstm_recurrence(xg, relayout(w_hh))
 
 
 def recurrence_cols(xg: torch.Tensor, w_cols: torch.Tensor) -> torch.Tensor:
@@ -87,12 +94,32 @@ def recurrence_cols(xg: torch.Tensor, w_cols: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors: the hand-written kernel, on the current stream. CPU
     tensors: `recurrence_plain` on `undo_relayout(w_cols)`."""
+    _check(xg, w_cols, cols=True)
+    return lstm_recurrence(xg, w_cols)
+
+
+@torch.library.custom_op("vocal_remover_tpu_torch::lstm_recurrence",
+                         mutates_args=())
+def lstm_recurrence(xg: torch.Tensor, w_cols: torch.Tensor) -> torch.Tensor:
+    """The op's implementation for every device but CUDA: the plain
+    version on the CPU, an error elsewhere."""
+    if xg.device.type != "cpu":
+        raise ValueError(f"no recurrence kernel for device {xg.device}")
+    return recurrence_plain(xg, undo_relayout(w_cols))
+
+
+@lstm_recurrence.register_fake
+def _lstm_recurrence_fake(xg, w_cols):
+    _check(xg, w_cols, cols=True)
+    t_len, two_n, four_h = xg.shape
+    return xg.new_empty(t_len, two_n, four_h // 4)
+
+
+@lstm_recurrence.register_kernel("cuda")
+def _lstm_recurrence_cuda(xg, w_cols):
+    """The kernel launch, on the current stream."""
     global launches
     _check(xg, w_cols, cols=True)
-    if xg.device.type == "cpu":
-        return recurrence_plain(xg, undo_relayout(w_cols))
-    if xg.device.type != "cuda":
-        raise ValueError(f"no recurrence kernel for device {xg.device}")
     if not (xg.is_contiguous() and w_cols.is_contiguous()):
         raise ValueError("the recurrence kernel takes contiguous tensors")
     t_len, two_n, four_h = xg.shape

@@ -32,8 +32,21 @@ def interp_matrix(n_in: int, n_out: int) -> np.ndarray:
     return A
 
 
-@functools.lru_cache(maxsize=128)
 def _matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype):
+    """The interp matrix as a tensor, kept per (device, dtype) for the
+    eager path. A trace (torch.export, torch.compile) gets a fresh one,
+    which it records as a constant: the tensor belongs to that trace
+    (its fake mode) and must not stay in the cache, where a later eager
+    call would find it."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(interp_matrix(n_in, n_out).copy()).to(
+            device, dtype)
+    return _cached_matrix(n_in, n_out, device, dtype)
+
+
+@functools.lru_cache(maxsize=128)
+def _cached_matrix(n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype):
     return torch.from_numpy(interp_matrix(n_in, n_out)).to(device, dtype)
 
 

@@ -3,11 +3,11 @@
 The port's own counterpart of vocal_remover_tpu/utils/audio.py and
 native `pcm16_encode`: WAV decode (PCM 8/16/24/32, float32/float64),
 FLAC, MP3 and AAC (AAC-LC and HE-AAC in .m4a / .mp4 / raw .aac ADTS)
-through the port's native decoders (native/), ffmpeg for a stream they
-reject when ffmpeg is on PATH, WAV encode as 16-bit PCM (soundfile's WAV
-default, what the reference writes), and band-limited sinc resampling
-with the reference's `kaiser_fast` (utils/resample.py). Waves are
-float32, channel-first (C, L).
+through the port's native decoders (native/), ffmpeg (when on PATH)
+for a stream they reject or when they fail to build, WAV encode as
+16-bit PCM (soundfile's WAV default, what the reference writes), and
+band-limited sinc resampling with the reference's `kaiser_fast`
+(utils/resample.py). Waves are float32, channel-first (C, L).
 """
 
 from __future__ import annotations
@@ -134,9 +134,9 @@ _READERS = {".wav": read_wav, ".flac": read_flac, ".mp3": read_mp3,
 def load(path: str, sr: int | None = 44100) -> tuple[np.ndarray, int]:
     """librosa.load(mono=False)-style: ((C, L) float32, or (L,) for a
     one-channel file, sample rate), resampled to `sr` when given. A
-    compressed stream that its native decoder rejects (ValueError) goes
-    to ffmpeg, as in the JAX package; a decoder that fails to build
-    raises."""
+    compressed stream goes to ffmpeg, as in the JAX package, when its
+    native decoder rejects it (ValueError) or the decoders fail to build
+    (RuntimeError); without ffmpeg on PATH the error names both."""
     reader = _READERS.get(os.path.splitext(path)[1].lower())
     if reader is None:
         wave, file_sr = _load_via_ffmpeg(path)
@@ -146,6 +146,13 @@ def load(path: str, sr: int | None = 44100) -> tuple[np.ndarray, int]:
         try:
             wave, file_sr = reader(path)
         except ValueError:
+            wave, file_sr = _load_via_ffmpeg(path)
+        except RuntimeError as e:  # native/build.py: no compiler, or it failed
+            if _FFMPEG is None:
+                raise RuntimeError(
+                    f"cannot decode {path!r}: the native audio decoders "
+                    f"failed to build ({e}), and ffmpeg is not on PATH"
+                ) from e
             wave, file_sr = _load_via_ffmpeg(path)
     if sr is not None and file_sr != sr:
         wave = resample(wave, file_sr, sr)
