@@ -79,6 +79,21 @@ Phases (each prints a line; any failure exits non-zero):
      stems (0 LSB); the file written on the card loaded on the CPU, and
      the card's programs moved to the CPU: one chunk of masks each
      against the card's (CROSS_DEVICE_TOL);
+  7c. training ([train]): four seeded 30 s stereo songs (instrumental stem
+     plus a voice-like partial series) through the training CLI on the
+     card at its full width and defaults (-C 256 -B 4 -p 8 -v 0.25,
+     highest), two epochs, then a third with --resume: every loss finite,
+     the recurrence kernel launched 5 x validation chunks a validation
+     and never in the train step (the plain loop under autograd); the
+     best checkpoint separates a 10 s song through the inference CLI
+     (residual 2 LSB); compute_grads of CascadedNet(256, 128, 8, 16) in
+     float64 card vs CPU (GRAD_RTOL) and one batch's full-width train-mode
+     loss in float32 card vs CPU (TRAIN_LOSS_RTOL); then the warm step
+     time and samples/s, peak memory, the plain recurrence's forward +
+     backward share of the step (alone, and the step's wall with it
+     replaced by its forward kernel and zero gradients), validation ms a
+     patch, an epoch from the loader with the steps' wait on it, and one
+     profiled epoch (busy share, launches a step, top kernels);
   8. lab path: the port's two conv tools at their default shapes and dtype
      (scripts/conv_kernel_lab.py: variants A, C, D chained and checked
      against conv2d; scripts/bench_conv_kernel.py: variant A against the
@@ -98,11 +113,14 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import gc
+import glob
 import importlib.util
 import io
 import json
 import os
+import random
 import struct
 import subprocess
 import sys
@@ -1316,7 +1334,7 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
     precision; the 1024 entry at batch 24; [dir]'s songs through
     --input_dir on the bf16 artifact against [dir]'s `.vrt.npz` stems;
     the card's file loaded on the CPU, and the card's programs moved
-    there. -> the warm artifact runs' launches, by precision."""
+    there."""
     from vocal_remover_tpu_torch.cli import export as export_cli
     from vocal_remover_tpu_torch.nn import lstm_kernel
     from vocal_remover_tpu_torch.separate import artifact
@@ -1401,7 +1419,6 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
         return max(int(np.abs(x - y).max()) for x, y in zip(a, b))
 
     chunks = -(-patch_count(mix.shape[-1], 256) // 4)
-    warm = {}
     for prec in EXPORT_PRECISIONS:
         path = arts[prec][0]
         w0, _, st0, _, ref = serve(f"npz {prec}", ckpt, song,
@@ -1413,7 +1430,6 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
             d = lsb(got["song"], ref["song"])
             check(d <= 1, f"export {prec} {run}: stems vs the .vrt.npz run "
                           f"{d} LSB > 1")
-            warm[prec] = launches
             print(f"[export] {prec} -P flagship-{prec}.vrtx {run}: {w:.3f} s "
                   f"wall ({SONG_SECONDS / w:.2f} x real time; stages {st}), "
                   f".vrt.npz --precision {prec} {w0:.3f} s (stages {st0}); "
@@ -1465,7 +1481,359 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
           f"{CROSS_DEVICE_TOL})", flush=True)
     del arts, am
     gc.collect()
-    return warm
+
+
+TRAIN_SONGS = 4  # 3 train, 1 validation at -v 0.25
+TRAIN_NFFT, TRAIN_HOP = 2048, 1024  # the training CLI's defaults
+TRAIN_SECONDS = 30
+TRAIN_ARGS = ["-C", "256", "-B", "4", "-p", "8", "-v", "0.25"]
+TRAIN_EPOCHS = 2  # then one more with --resume
+TRAIN_BATCH = 4
+VAL_BATCH = 4  # the CLI's default --val_batchsize
+STEP_REPEAT = 12  # warm steps on the clock
+# one batch's train-mode loss at full width, card vs CPU, float32
+TRAIN_LOSS_RTOL = 1e-4
+# compute_grads of the reduced model, card vs CPU, float64: each gradient
+# leaf against its largest |g| (leaves that are zero in exact arithmetic
+# against 1e-12 of the model's largest |g|), the loss relative
+GRAD_RTOL = 1e-9
+SMALL_NET = (256, 128, 8, 16)
+
+
+def train_pair(seconds: float, seed: int):
+    """(mixture, instrumental) stereo 44.1 kHz pair: the instrumental is
+    bass, three chord tones and noise; the mixture adds a vibrato
+    voice-like partial series that sings in phrases."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(SR * seconds)) / SR
+    f0 = rng.uniform(180.0, 300.0)
+    voice = sum(np.sin(2 * np.pi * k * f0 * (t + 0.002 * np.sin(
+        2 * np.pi * 5 * t))) / k for k in range(1, 6))
+    voice = voice * (np.sin(2 * np.pi * 0.25 * t) > -0.3)
+    bass = np.sin(2 * np.pi * rng.uniform(40.0, 80.0) * t)
+    chord = sum(np.sin(2 * np.pi * f * t) for f in rng.uniform(200, 800, 3))
+    inst = np.stack([0.1 * bass + 0.05 * chord, 0.1 * bass + 0.04 * chord])
+    inst = inst + 0.02 * rng.standard_normal(inst.shape)
+    mix = inst + 0.1 * np.stack([voice, 0.9 * voice])
+    return mix.astype(np.float32), inst.astype(np.float32)
+
+
+def run_train_cli(argv, counters, cwd):
+    """One in-process run of the training CLI with every launch count
+    reset just before and read just after; -> (wall s, {kernel:
+    launches}, the run's loss log)."""
+    from vocal_remover_tpu_torch.cli import train as train_cli
+
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logs = sorted(glob.glob(os.path.join(cwd, "loss_*.json")),
+                  key=os.path.getmtime)
+    with open(logs[-1]) as f:
+        log = json.load(f)
+    return wall, {k: w.launches for k, w in counters.items()}, log
+
+
+def recurrence_train_ms(shapes) -> float:
+    """Device ms of the plain recurrence's forward and backward (the train
+    step's BiLSTM recurrence) summed over `shapes` (T, 2N, H), one per
+    band net, on random inputs (CUDA events)."""
+    from vocal_remover_tpu_torch.nn import lstm_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    total = 0.0
+    for t_len, two_n, hidden in shapes:
+        xg = (0.5 * torch.randn(t_len, two_n, 4 * hidden, device="cuda",
+                                generator=gen)).requires_grad_()
+        w = (0.1 * torch.randn(2, hidden, 4 * hidden, device="cuda",
+                               generator=gen)).requires_grad_()
+        up = torch.randn(t_len, two_n, hidden, device="cuda", generator=gen)
+
+        def fwd_bwd():
+            torch.autograd.backward(lstm_kernel.recurrence_plain(xg, w), up)
+
+        total += cuda_ms(fwd_bwd, iters=5, warmup=1)
+    return total
+
+
+class _RecurrenceKernelNoGrad(torch.autograd.Function):
+    """Timing stand-in for the plain recurrence in the train step: the
+    forward kernel, and zero gradients for its inputs. The step's other
+    work (the backward of every op around it included) is unchanged, so
+    the step's wall with and without it is the plain recurrence's share
+    of the step as the step runs it."""
+
+    @staticmethod
+    def forward(ctx, xg, w_hh):
+        from vocal_remover_tpu_torch.nn import lstm_kernel
+
+        ctx.shapes = xg.shape, w_hh.shape
+        return lstm_kernel.recurrence(xg, w_hh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xs, ws = ctx.shapes
+        return grad.new_zeros(xs), grad.new_zeros(ws)
+
+
+def step_ms_without_plain_recurrence(trainer, steps) -> float:
+    """Wall ms a step of `steps` with the plain recurrence replaced by
+    `_RecurrenceKernelNoGrad` (timing only: the gradients are not the
+    model's)."""
+    from vocal_remover_tpu_torch.nn import lstm_kernel
+
+    plain = lstm_kernel.recurrence_plain
+    lstm_kernel.recurrence_plain = _RecurrenceKernelNoGrad.apply
+    try:
+        trainer.train_epoch(steps[:1])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(steps)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / len(steps)
+    finally:
+        lstm_kernel.recurrence_plain = plain
+
+
+def grads_card_vs_cpu(seed):
+    """compute_grads of SMALL_NET in float64 on the card and on the CPU;
+    -> (loss relative difference, worst gradient leaf difference over
+    its tolerance scale, leaves)."""
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    rng = np.random.default_rng(seed)
+    X = np.abs(rng.standard_normal((2, 2, SMALL_NET[0] // 2 + 1, 256)))
+    y = X * rng.uniform(0.0, 1.0, X.shape)
+    config.set_compute_dtype(torch.float64)
+    try:
+        model = CascadedNet(*SMALL_NET, generator=torch.Generator()
+                            .manual_seed(seed)).double()
+        res = {}
+        for dev in ("cpu", "cuda"):
+            t = Trainer(copy.deepcopy(model), 1e-3, dropout=False, device=dev)
+            loss, grads = t.compute_grads(X, y)
+            res[dev] = loss, {k: g.cpu().numpy() for k, g in grads.items()}
+    finally:
+        config.set_compute_dtype(torch.float32)
+    (lc, gc_), (lg, gg) = res["cpu"], res["cuda"]
+    scale = max(np.abs(g).max() for g in gc_.values())
+    worst = max(np.abs(gg[k] - g).max()
+                / max(np.abs(g).max(), 1e-3 * scale) for k, g in gc_.items())
+    return abs(lg - lc) / abs(lc), worst, len(gc_)
+
+
+def phase_train(tmp, seed, counters, smi):
+    """The training slice ([train]): a seeded dataset of TRAIN_SONGS
+    stereo 44.1 kHz songs through the training CLI on the card at its
+    full width and defaults (CascadedNet(2048, 1024, 32, 128), highest),
+    TRAIN_EPOCHS epochs, then one more with --resume; the best checkpoint
+    separates a 10 s song through the inference CLI; compute_grads in
+    float64 and a full-width float32 train-mode loss, card vs CPU; then
+    the step time, samples/s, validation ms a patch, peak memory, one
+    profiled epoch (busy share, top kernels), the plain recurrence's
+    share of the step (alone, and as the step's wall with and without it)
+    and the step's wait on the loader.
+    -> the recurrence's launches in the first CLI run (all validation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vocal_remover_tpu_torch.cli import train as train_cli
+    from vocal_remover_tpu_torch.data import cache, dataset, pairing
+    from vocal_remover_tpu_torch.data.loader import Loader
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.train import checkpoint, losses
+    from vocal_remover_tpu_torch.train.step import Trainer
+    from vocal_remover_tpu_torch.utils import audio
+
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    root = os.path.join(tmp, "train")
+    data = os.path.join(root, "dataset")
+    for sub in ("mixtures", "instruments"):
+        os.makedirs(os.path.join(data, sub))
+    for i in range(TRAIN_SONGS):
+        mix, inst = train_pair(TRAIN_SECONDS, seed + i)
+        audio.write_wav(os.path.join(data, "mixtures", f"song{i}.wav"),
+                        mix, SR)
+        audio.write_wav(os.path.join(data, "instruments", f"song{i}.wav"),
+                        inst, SR)
+    out = os.path.join(root, "models")
+    state = os.path.join(out, checkpoint.STATE_NAME)
+    argv = ["-d", data, "--output_dir", out] + TRAIN_ARGS
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI writes its logs and validation patches here
+    try:
+        wall, launches, log = run_train_cli(
+            argv + ["-E", str(TRAIN_EPOCHS)], counters, root)
+        patches = sorted(glob.glob(os.path.join(
+            root, f"cs256_sr{SR}_hl{TRAIN_HOP}_nf{TRAIN_NFFT}_of64", "*.npz")))
+        chunks = -(-len(patches) // VAL_BATCH)
+        check(len(log) == TRAIN_EPOCHS and np.isfinite(log).all(),
+              f"train: loss log {log}")
+        for k, n in launches.items():
+            want = 5 * chunks * TRAIN_EPOCHS if k == "lstm_recurrence" else 0
+            check(n == want, f"train: {k} launched {n} times, want {want} "
+                             f"(5 band nets x {chunks} validation chunks x "
+                             f"{TRAIN_EPOCHS} epochs; none in the train step)")
+        first_launches = launches["lstm_recurrence"]
+        print(f"[train] cli.train -E {TRAIN_EPOCHS} {' '.join(TRAIN_ARGS)} "
+              f"on {TRAIN_SONGS} x {TRAIN_SECONDS} s songs (cache built in "
+              f"the run): {wall:.3f} s wall, losses (train, val) {log}, "
+              f"launches {launches} = 5 x {chunks} chunks of {len(patches)} "
+              f"validation patches x {TRAIN_EPOCHS}; {smi}", flush=True)
+
+        wall, launches, log = run_train_cli(
+            argv + ["-E", str(TRAIN_EPOCHS + 1), "--resume", state],
+            counters, root)
+        with open(state + ".meta.json") as f:
+            meta = json.load(f)
+        check(len(log) == 1 and np.isfinite(log).all()
+              and meta["epoch"] == TRAIN_EPOCHS,
+              f"train --resume: log {log}, meta {meta}")
+        check(launches["lstm_recurrence"] == 5 * chunks,
+              f"train --resume: {launches}")
+        print(f"[train] cli.train --resume, epoch {TRAIN_EPOCHS}: {wall:.3f} "
+              f"s wall, losses {log}, launches {launches}, step counter "
+              f"{meta['step_counter']}", flush=True)
+    finally:
+        os.chdir(cwd)
+
+    # the best checkpoint separates a 10 s song on the card
+    best = max(glob.glob(os.path.join(out, "model_iter*.vrt.npz")),
+               key=lambda p: int(p.rsplit("iter", 1)[1].split(".")[0]))
+    song = os.path.join(root, "ten.wav")
+    audio.write_wav(song, train_pair(10, seed + 99)[0], SR)
+    sep_out = os.path.join(root, "sep")
+    wall, launches = run_cli(["-P", best, "-i", song, "-o", sep_out, "-r",
+                              str(SR), "-f", str(TRAIN_NFFT), "-H",
+                              str(TRAIN_HOP)], counters)
+    y, v = read_stems(sep_out, "ten")
+    resid = residual_lsb(y, v, read_mix(song))
+    check(resid <= 2, f"train: separation with {best}: residual {resid} LSB")
+    check(launches["lstm_recurrence"] > 0, f"train: separation {launches}")
+    print(f"[train] {os.path.basename(best)} separates a 10 s song through "
+          f"cli.inference: {wall:.3f} s, residual {resid} LSB (tol 2), "
+          f"launches {launches}", flush=True)
+
+    rel, worst, leaves = grads_card_vs_cpu(seed)
+    check(rel <= GRAD_RTOL and worst <= GRAD_RTOL,
+          f"train: float64 compute_grads card vs CPU: loss {rel:.3g}, "
+          f"worst leaf {worst:.3g} (tol {GRAD_RTOL})")
+    print(f"[train] compute_grads CascadedNet{SMALL_NET} float64, card vs "
+          f"CPU: loss {rel:.3g} relative, worst of {leaves} gradient leaves "
+          f"{worst:.3g} of its max |g| (tol {GRAD_RTOL})", flush=True)
+
+    # the CLI's training loader (its seed, split and data; the cache is
+    # there) and its validation patches
+    cli_seed = train_cli.build_parser().get_default("seed")
+    random.seed(cli_seed)
+    train_files, _ = pairing.train_val_split(data, "random", 0.25, [])
+    tset = cache.make_training_set(train_files, SR, TRAIN_HOP, TRAIN_NFFT)
+    ramp = train_cli.reduction_weight_ramp(TRAIN_NFFT, SR, 0.2)
+    loader = Loader(dataset.TrainingSet(tset * 8, 256, 0.0, ramp, 0.0, 1.0,
+                                        seed=cli_seed), TRAIN_BATCH,
+                    shuffle=True, seed=cli_seed)
+    batches = list(loader)
+    val_batches = list(Loader(dataset.ValidationSet(patches), VAL_BATCH))
+
+    with config.precision("highest"):
+        model = CascadedNet(TRAIN_NFFT, TRAIN_HOP, 32, 128,
+                            generator=torch.Generator().manual_seed(seed))
+        card = copy.deepcopy(model).cuda().train()
+        Xc, yc = (torch.from_numpy(a) for a in batches[0])
+        with torch.no_grad():
+            lc = float(losses.mask_l1_loss(model.train()(Xc), Xc, yc))
+            Xg, yg = Xc.cuda(), yc.cuda()
+            lg = float(losses.mask_l1_loss(card(Xg), Xg, yg))
+        rel = abs(lg - lc) / abs(lc)
+        check(rel <= TRAIN_LOSS_RTOL, f"train: full-width train-mode loss "
+              f"card {lg} vs CPU {lc}: {rel:.3g} > {TRAIN_LOSS_RTOL}")
+        print(f"[train] full-width train-mode loss of one batch of "
+              f"{tuple(Xc.shape)}, float32: card {lg:.8f}, CPU {lc:.8f}, "
+              f"{rel:.3g} relative (tol {TRAIN_LOSS_RTOL})", flush=True)
+        del card, Xg, yg
+
+        trainer = Trainer(model, 1e-3, seed=seed)
+        trainer.train_epoch(batches[:2])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = (batches * 2)[:STEP_REPEAT]
+        t0 = time.perf_counter()
+        trainer.train_epoch(steps)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / len(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec_ms = recurrence_train_ms([(128, 2 * TRAIN_BATCH, h)
+                                      for h in (64, 32, 64, 32, 64)])
+        print(f"[train] warm step, batch {TRAIN_BATCH} crop 256 highest: "
+              f"{step_ms:.2f} ms ({len(steps)} steps, batches in memory), "
+              f"{1e3 * TRAIN_BATCH / step_ms:.2f} samples/s, peak "
+              f"{peak:.2f} GiB; the plain recurrence's forward + backward "
+              f"alone at the step's five shapes {rec_ms:.2f} ms = "
+              f"{100 * rec_ms / step_ms:.1f}% of the step's wall "
+              f"(isolated, CUDA events); {smi}", flush=True)
+        alt_ms = step_ms_without_plain_recurrence(trainer, steps)
+        print(f"[train] the same steps with the plain recurrence replaced "
+              f"by its forward kernel and zero gradients (timing only): "
+              f"{alt_ms:.2f} ms a step; the plain recurrence's forward + "
+              f"backward take {step_ms - alt_ms:.2f} ms = "
+              f"{100 * (step_ms - alt_ms) / step_ms:.1f}% of the step in the "
+              f"step; {smi}", flush=True)
+
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        trainer.validate_epoch(val_batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate_epoch(val_batches)
+        torch.cuda.synchronize()
+        val_ms = 1e3 * (time.perf_counter() - t0) / len(patches)
+        n_rec = counters["lstm_recurrence"].launches
+        check(n_rec == 2 * 5 * chunks, f"train: validation launched the "
+              f"recurrence {n_rec} times, want {2 * 5 * chunks}")
+        print(f"[train] validation: {val_ms:.2f} ms a patch ({len(patches)} "
+              f"patches, batch {VAL_BATCH}; recurrence kernel {n_rec // 2} "
+              "launches a pass)", flush=True)
+
+        t0 = time.perf_counter()
+        trainer.train_epoch(loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"[train] one epoch from the loader ({len(loader)} steps, "
+              f"4 workers): {wall:.3f} s, the steps waited "
+              f"{trainer.loader_wait_s:.3f} s on it "
+              f"({100 * trainer.loader_wait_s / wall:.1f}%)", flush=True)
+
+        # device activity only: a step launches about 61,000 kernels, and
+        # the host ops' events would take longer to read than the epoch
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_epoch(loader)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    busy, by_name = kernel_summary(kernels)
+    total = sum(t for t, _ in by_name.values())
+    print(f"[train] profiled epoch ({len(loader)} steps): {wall:.3f} s wall, "
+          f"{len(kernels)} kernel launches ({len(kernels) // len(loader)} a "
+          f"step), kernel time {total / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms = {100 * busy / 1e6 / wall:.1f}% of wall",
+          flush=True)
+    for kname, (t, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print(f"[train]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",
+              flush=True)
+    del prof, kernels, trainer, model
+    gc.collect()
+    print(f"[train] phase: {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return first_launches
 
 
 def phase_profile(ckpt, seed):
@@ -1581,39 +1949,60 @@ def main():
     }]
     counters = {k["name"]: k["wrapper"] for k in kernels}
 
+    # each phase's wall, for the time limit: (label, clock after it)
+    marks = [("start", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
     name, smi = phase_card()
     config.set_precision("highest")
     phase_build(kernels)
     phase_native_build()
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rec_rows = phase_recurrence(gen)
     flat_rows = phase_flat_conv(args.seed)
     torch.cuda.empty_cache()
     chw_rows = phase_chw_convs(args.seed)
+    mark("kernel")
 
     with tempfile.TemporaryDirectory() as tmp:
         per_chunk = {k["name"]: k["per_chunk"] for k in kernels}
         ckpt, results = phase_main_path(tmp, args.seed, counters, per_chunk)
         phase_reference(tmp, ckpt, args.seed)
+        mark("main")
         phase_spec(tmp, ckpt, args.seed, counters, per_chunk, smi)
+        mark("spec")
         dir_run = phase_dir(tmp, ckpt, args.seed, counters, per_chunk)
+        mark("dir")
         phase_stream(tmp, ckpt, args.seed, counters, per_chunk)
-        export_launches = phase_export(tmp, ckpt, args.seed, counters,
-                                       per_chunk, smi, dir_run)
+        mark("stream")
+        phase_export(tmp, ckpt, args.seed, counters, per_chunk, smi, dir_run)
+        mark("export")
+        train_launches = phase_train(tmp, args.seed, counters, smi)
+        mark("train")
         if args.profile:
             phase_profile(ckpt, args.seed)
+            mark("profile")
     lab_launches = phase_lab(counters)
+    mark("lab")
+    print("[time] " + ", ".join(
+        f"{label} {t - marks[i][1]:.1f} s" for i, (label, t) in
+        enumerate(marks[1:])) + f"; total {marks[-1][1] - marks[0][1]:.1f} s",
+        flush=True)
 
     # one record per kernel. The two kernels of the model: launches of
-    # the recurrence on this slice's path (-P model.vrtx, the highest
-    # artifact's warm run) and of the flat conv on the --flat_conv path
-    # (warm run), largest error over the f32 cases, times at the
-    # flagship's largest launch (recurrence T = 128, 2N = 8, H = 64; flat
-    # conv stg3_full_band_net enc2_conv2 in f32). The three channel-major
+    # the recurrence on this slice's path (the training CLI's first run:
+    # its validation passes; the train step runs the plain loop) and of
+    # the flat conv on the --flat_conv path (warm run), largest error
+    # over the f32 cases, times at the flagship's largest launch
+    # (recurrence T = 128, 2N = 8, H = 64; flat conv stg3_full_band_net
+    # enc2_conv2 in f32). The three channel-major
     # conv kernels: launches on the lab path, error and times at the
     # lab's first shape in its default dtype (bf16).
     launches = dict(results["flat", "warm"]["launches"])
-    launches["lstm_recurrence"] = export_launches["highest"]["lstm_recurrence"]
+    launches["lstm_recurrence"] = train_launches
     shown = {
         "lstm_recurrence": (rec_rows[0], rec_rows),
         "flat_conv": (

@@ -1,6 +1,7 @@
 """Shared inputs for the GPU port's tests (tests/test_torch_*.py)."""
 
 import numpy as np
+import pytest
 
 
 def perturb_bn(tree, rng):
@@ -53,3 +54,100 @@ def small_pair(seed=7):
 def max_lsb(a, b):
     """Largest difference of two int16 stems, in PCM16 LSB."""
     return int(np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32)).max())
+
+
+@pytest.fixture
+def float64_mode():
+    """JAX x64 and both packages' compute dtype at float64 for a test
+    (as the JAX package's tests/test_grad_parity.py), restored after:
+    gradients compared across the frameworks in float32 differ where
+    rounding flips a ReLU / LeakyReLU branch."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from vocal_remover_tpu.nn import config as jconfig
+    from vocal_remover_tpu_torch.nn import config as tconfig
+
+    jax.config.update("jax_enable_x64", True)
+    jconfig.set_compute_dtype(jnp.float64)
+    tconfig.set_compute_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+        jconfig.set_compute_dtype(jnp.float32)
+        tconfig.set_compute_dtype(torch.float32)
+
+
+TINY = (64, 32, 4, 8)  # JAX's tiny training configuration (test_train.py)
+
+
+def tiny_weights(seed):
+    """JAX's init of the tiny CascadedNet (jitted, float32) with BN
+    perturbed, as numpy."""
+    import jax
+
+    from vocal_remover_tpu.models.cascaded import CascadedNet as JCascadedNet
+
+    jmod = JCascadedNet(*TINY)
+    return perturb_bn(jax.jit(jmod.init)(jax.random.PRNGKey(seed)),
+                      np.random.default_rng(seed))
+
+
+def check_grads_match_jax(weights, aux_lambda):
+    """The port's `Trainer.compute_grads` against JAX's
+    `Trainer(dropout=False).compute_grads` on the tiny net, in float64
+    (run under the float64_mode fixture): the loss within 1e-10
+    relative; each gradient leaf within 1e-9 of its largest |g|. Leaves
+    whose gradient is zero in exact arithmetic (the dense head's bias
+    feeds a batch norm: cancellation residue, ~1e-17; aux_out without
+    aux_lambda) are held to 1e-12 of the largest |g| of the model
+    instead. compute_grads must leave the model as it was."""
+    import copy
+
+    import jax
+    import torch
+
+    from vocal_remover_tpu.models.cascaded import CascadedNet as JCascadedNet
+    from vocal_remover_tpu.nn.partition import partition
+    from vocal_remover_tpu.train.step import Trainer as JTrainer
+    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    v = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), weights)
+    rng = np.random.default_rng(12)
+    X = np.abs(rng.standard_normal((2, 2, 33, 160)))
+    y = X * rng.uniform(0.0, 1.0, X.shape)
+
+    jt = JTrainer(JCascadedNet(*TINY), v, learning_rate=1e-3, dropout=False,
+                  aux_lambda=aux_lambda)
+    jloss, jgrads = jt.compute_grads(X, y)
+    jflat = convert._flatten(jgrads)
+
+    model = convert.from_jax_variables(CascadedNet(*TINY), v).double()
+    before = {k: b.clone() for k, b in model.state_dict().items()}
+    trainer = Trainer(model, learning_rate=1e-3, dropout=False,
+                      aux_lambda=aux_lambda, device="cpu")
+    loss, grads = trainer.compute_grads(X, y)
+    for k, b in model.state_dict().items():
+        assert torch.equal(b, before[k]), k
+    assert all(p.grad is None for p in model.parameters())
+
+    assert abs(loss - jloss) <= 1e-10 * abs(jloss)
+    # the port's {name: gradient} as JAX's tree, through the converter
+    holder = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in holder.named_parameters():
+            p.copy_(grads[name])
+    flat = convert._flatten(partition(convert.to_jax_variables(holder))[0])
+    assert set(flat) == set(jflat) and len(flat) > 100
+    scale = max(np.abs(g).max() for g in jflat.values())
+    for k, g_ref in jflat.items():
+        g = flat[k]
+        assert g.dtype == np.float64 and g.shape == g_ref.shape, k
+        tol = max(1e-9 * np.abs(g_ref).max(), 1e-12 * scale)
+        np.testing.assert_allclose(g, g_ref, rtol=0, atol=tol, err_msg=k)
+    aux = np.abs(flat["aux_out/conv"]).max()
+    assert (aux > 0) == (aux_lambda > 0)

@@ -1,0 +1,324 @@
+"""Training CLI on the GPU port.
+
+    python -m vocal_remover_tpu_torch.cli.train --dataset DIR [--gpu -1]
+
+Flag-compatible with vocal_remover_tpu/cli/train.py (reference
+train.py:137-294): the dataset's `mixtures/` and `instruments/` pairs
+are split, cached as spectrograms and cut into validation patches; the
+model is CascadedNet(n_fft, hop_length, 32, 128); each epoch trains,
+validates, steps the plateau scheduler, writes
+`<output_dir>/model_iter{epoch}.vrt.npz` on a new best validation loss
+and the full training state `<output_dir>/train_state.pt` (with its
+`.meta.json`), which `--resume` continues. `loss_{time}.json`,
+`val_{time}.json` and `train_{time}.log` go to the working directory,
+as in the JAX package.
+
+Runs on card `--gpu` (default 0); `--gpu -1` runs on the CPU. Without a
+card and without `--gpu -1` it raises rather than fall back to the CPU.
+Batches are staged in float32 under `--precision highest` and in
+bfloat16 under `default` (TF32 on the card). Refused, each naming its
+ROADMAP.md item: `--is_complex`, `--wave_loss`, `--remat`,
+`--device_data_cache`, `--precision bfloat16`, `--transfer_dtype int8`
+(A9) and `--data_parallel` other than 1 (A10). Unlike the JAX package's
+root `train.py`, which logs a failure and exits 0, a failed run logs the
+traceback and exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+from datetime import datetime
+
+import numpy as np
+
+
+def build_parser():
+    p = argparse.ArgumentParser()
+    p.add_argument('--gpu', '-g', type=int, default=0,
+                   help='CUDA card index; -1 runs on the CPU')
+    p.add_argument('--seed', '-s', type=int, default=2019)
+    p.add_argument('--sr', '-r', type=int, default=44100)
+    p.add_argument('--hop_length', '-H', type=int, default=1024)
+    p.add_argument('--n_fft', '-f', type=int, default=2048)
+    p.add_argument('--dataset', '-d', required=True)
+    p.add_argument('--split_mode', '-S', type=str, default='random',
+                   choices=['random', 'subdirs'])
+    p.add_argument('--learning_rate', '-l', type=float, default=0.001)
+    p.add_argument('--lr_min', type=float, default=0.0001)
+    p.add_argument('--lr_decay_factor', type=float, default=0.9)
+    p.add_argument('--lr_decay_patience', type=int, default=6)
+    p.add_argument('--batchsize', '-B', type=int, default=4)
+    p.add_argument('--accumulation_steps', '-A', type=int, default=1)
+    p.add_argument('--cropsize', '-C', type=int, default=256)
+    p.add_argument('--patches', '-p', type=int, default=16)
+    p.add_argument('--val_rate', '-v', type=float, default=0.2)
+    p.add_argument('--val_filelist', '-V', type=str, default=None)
+    p.add_argument('--val_batchsize', '-b', type=int, default=4)
+    p.add_argument('--val_cropsize', '-c', type=int, default=256)
+    p.add_argument('--num_workers', '-w', type=int, default=4)
+    p.add_argument('--epoch', '-E', type=int, default=200)
+    p.add_argument('--reduction_rate', '-R', type=float, default=0.0)
+    p.add_argument('--reduction_level', '-L', type=float, default=0.2)
+    p.add_argument('--mixup_rate', '-M', type=float, default=0.0)
+    p.add_argument('--mixup_alpha', '-a', type=float, default=1.0)
+    p.add_argument('--mono_rate', type=float, default=0.0,
+                   help='mono-mix augmentation probability (dormant in '
+                        'the reference: lib/dataset.py:81-83)')
+    p.add_argument('--pretrained_model', '-P', type=str, default=None)
+    p.add_argument('--aux_lambda', type=float, default=0.0,
+                   help='deep-supervision weight for the aux mask head '
+                        '(0 = reference behaviour)')
+    p.add_argument('--is_complex', action='store_true',
+                   help='complex-mask training: not ported yet '
+                        '(ROADMAP.md A9)')
+    p.add_argument('--wave_loss', type=str, default=None,
+                   choices=['sdr', 'weighted_sdr'],
+                   help='wave-domain SDR loss: not ported yet '
+                        '(ROADMAP.md A9)')
+    p.add_argument('--wave_loss_weight', type=float, default=0.01)
+    p.add_argument('--debug', action='store_true')
+    p.add_argument('--data_parallel', type=int, default=1,
+                   help='cards in the data-parallel group: only 1 is '
+                        'ported (ROADMAP.md A10)')
+    p.add_argument('--resume', type=str, default=None,
+                   help='full train-state checkpoint (train_state.pt) to '
+                        'resume from')
+    p.add_argument('--precision', type=str, default='highest',
+                   choices=['highest', 'default', 'bfloat16'],
+                   help='highest = full float32, no TF32 (parity with '
+                        'the reference); default = float32 activations '
+                        'with TF32 multiplies; bfloat16 training is not '
+                        'ported yet (ROADMAP.md A9)')
+    p.add_argument('--transfer_dtype', type=str, default=None,
+                   choices=['float32', 'bfloat16', 'int8'],
+                   help='dtype of the host -> card batch staging (default: '
+                        'float32 under --precision highest, bfloat16 '
+                        'otherwise); int8 is not ported yet (ROADMAP.md A9)')
+    p.add_argument('--remat', action='store_true',
+                   help='recompute band-net stages in the backward pass: '
+                        'not ported yet (ROADMAP.md A9)')
+    p.add_argument('--device_data_cache', action='store_true',
+                   help='card-resident dataset: not ported yet '
+                        '(ROADMAP.md A9)')
+    p.add_argument('--output_dir', type=str, default='models')
+    return p
+
+
+def _refuse_unported(args):
+    refused = [
+        (args.is_complex, "--is_complex (complex-mask training)"),
+        (args.wave_loss is not None, "--wave_loss"),
+        (args.remat, "--remat"),
+        (args.device_data_cache, "--device_data_cache"),
+        (args.precision == 'bfloat16', "--precision bfloat16 training"),
+        (args.transfer_dtype == 'int8', "--transfer_dtype int8"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise SystemExit(f"{what} is not ported to the GPU package yet: "
+                             "it comes with the rest of training "
+                             "(ROADMAP.md A9)")
+    if args.data_parallel != 1:
+        raise SystemExit("--data_parallel is not ported to the GPU package "
+                         "yet: it comes with multi-card training "
+                         "(parallelism slice, ROADMAP.md A10)")
+
+
+def reduction_weight_ramp(n_fft: int, sr: int, reduction_level: float):
+    """Frequency ramp for the vocal-reduction augmentation (reference
+    train.py:197-205): 0->1 below 200 Hz, 1->0 up to 22050 Hz, 0 above,
+    scaled by reduction_level, clamped to the spectrum (the reference
+    crashes below 44.1 kHz). Shape (bins, 1)."""
+    bins = n_fft // 2 + 1
+    freq_to_bin = 2 * bins / sr
+    unstable_bins = min(int(200 * freq_to_bin), bins)
+    stable_bins = min(int(22050 * freq_to_bin), bins)
+    arr = np.concatenate([
+        np.linspace(0, 1, unstable_bins, dtype=np.float32)[:, None],
+        np.linspace(1, 0, stable_bins - unstable_bins,
+                    dtype=np.float32)[:, None],
+        np.zeros((bins - stable_bins, 1), dtype=np.float32),
+    ])
+    return arr * reduction_level
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    timestamp = datetime.now().strftime('%Y%m%d%H%M%S')
+
+    from vocal_remover_tpu_torch.train.logging import setup_logger
+
+    logger = setup_logger(__name__, f'train_{timestamp}.log')
+    try:
+        _run(args, timestamp, logger)
+    except BaseException:
+        logger.exception('training failed')
+        raise
+    finally:
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+
+
+def _run(args, timestamp, logger):
+    import torch
+
+    from vocal_remover_tpu_torch import resolve_device
+    from vocal_remover_tpu_torch.data import cache, dataset, pairing
+    from vocal_remover_tpu_torch.data.loader import Loader
+    from vocal_remover_tpu_torch.models import convert
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.train import checkpoint
+    from vocal_remover_tpu_torch.train.plateau import ReduceLROnPlateau
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    logger.debug(vars(args))
+    device = resolve_device("cpu" if args.gpu < 0 else f"cuda:{args.gpu}")
+    config.set_precision(args.precision)
+
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+
+    val_filelist = []
+    if args.val_filelist is not None:
+        with open(args.val_filelist, encoding='utf8') as f:
+            val_filelist = json.load(f)
+
+    train_filelist, val_filelist = pairing.train_val_split(
+        dataset_dir=args.dataset,
+        split_mode=args.split_mode,
+        val_rate=args.val_rate,
+        val_filelist=val_filelist,
+    )
+
+    if args.debug:
+        logger.info('### DEBUG MODE')
+        train_filelist = train_filelist[:1]
+        val_filelist = val_filelist[:1]
+    elif args.val_filelist is None and args.split_mode == 'random':
+        with open(f'val_{timestamp}.json', 'w', encoding='utf8') as f:
+            json.dump(val_filelist, f, ensure_ascii=False)
+
+    for i, (X_fname, y_fname) in enumerate(val_filelist):
+        logger.info('{} {} {}'.format(
+            i + 1, os.path.basename(X_fname), os.path.basename(y_fname)))
+
+    reduction_weight = reduction_weight_ramp(
+        args.n_fft, args.sr, args.reduction_level)
+
+    model = CascadedNet(args.n_fft, args.hop_length, 32, 128,
+                        generator=torch.Generator().manual_seed(args.seed))
+    if args.pretrained_model is not None:
+        convert.load_checkpoint(args.pretrained_model, model)
+
+    transfer_dtype = args.transfer_dtype
+    if transfer_dtype is None:
+        transfer_dtype = (
+            'float32' if args.precision == 'highest' else 'bfloat16')
+    logger.info(f'device: {device}, batch staging dtype: {transfer_dtype}')
+
+    trainer = Trainer(
+        model,
+        learning_rate=args.learning_rate,
+        accumulation_steps=args.accumulation_steps,
+        seed=args.seed,
+        transfer_dtype=(torch.bfloat16 if transfer_dtype == 'bfloat16'
+                        else None),
+        aux_lambda=args.aux_lambda,
+        device=device,
+    )
+    scheduler = ReduceLROnPlateau(
+        lr=args.learning_rate,
+        factor=args.lr_decay_factor,
+        patience=args.lr_decay_patience,
+        threshold=1e-6,
+        min_lr=args.lr_min,
+    )
+
+    training_set = cache.make_training_set(
+        filelist=train_filelist,
+        sr=args.sr,
+        hop_length=args.hop_length,
+        n_fft=args.n_fft,
+    )
+    train_dataset = dataset.TrainingSet(
+        training_set * args.patches,
+        cropsize=args.cropsize,
+        reduction_rate=args.reduction_rate,
+        reduction_weight=reduction_weight,
+        mixup_rate=args.mixup_rate,
+        mixup_alpha=args.mixup_alpha,
+        seed=args.seed,
+        mono_rate=args.mono_rate,
+    )
+    train_loader = Loader(
+        train_dataset,
+        batchsize=args.batchsize,
+        shuffle=True,
+        num_workers=args.num_workers,
+        seed=args.seed,
+    )
+
+    patch_list = dataset.make_validation_set(
+        filelist=val_filelist,
+        cropsize=args.val_cropsize,
+        sr=args.sr,
+        hop_length=args.hop_length,
+        n_fft=args.n_fft,
+        offset=model.offset,
+    )
+    val_loader = Loader(
+        dataset.ValidationSet(patch_list=patch_list),
+        batchsize=args.val_batchsize,
+        shuffle=False,
+        num_workers=args.num_workers,
+    )
+
+    start_epoch = 0
+    best_loss = np.inf
+    if args.resume is not None:
+        start_epoch, best_loss = checkpoint.load_train_state(
+            args.resume, trainer, scheduler)
+        start_epoch += 1
+        # continue the crop / augmentation stream an uninterrupted run
+        # would have produced (shuffle and per-item draws are functions
+        # of (seed, epoch))
+        train_loader.set_epoch(start_epoch)
+        logger.info(f'resumed from {args.resume} at epoch {start_epoch}')
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    log = []
+    for epoch in range(start_epoch, args.epoch):
+        logger.info('# epoch {}'.format(epoch))
+        train_loss = trainer.train_epoch(train_loader)
+        val_loss = trainer.validate_epoch(val_loader)
+
+        logger.info(
+            '  * training loss = {:.6f}, validation loss = {:.6f}'
+            .format(train_loss, val_loss))
+
+        trainer.set_learning_rate(scheduler.step(val_loss))
+
+        if val_loss < best_loss:
+            best_loss = val_loss
+            logger.info('  * best validation loss')
+            checkpoint.save_model(
+                os.path.join(args.output_dir, f'model_iter{epoch}.vrt.npz'),
+                trainer.model)
+
+        checkpoint.save_train_state(
+            os.path.join(args.output_dir, checkpoint.STATE_NAME),
+            trainer, scheduler, epoch, best_loss)
+
+        log.append([train_loss, val_loss])
+        with open(f'loss_{timestamp}.json', 'w', encoding='utf8') as f:
+            json.dump(log, f, ensure_ascii=False)
+
+
+if __name__ == '__main__':
+    main()

@@ -2,9 +2,9 @@
 
 Counterpart of vocal_remover_tpu/models/base_net.py (reference
 lib/nets.py:8-41): encoders at widths nout*{1,2,4,6,8} (stride 2 from
-enc2), ASPP bottleneck, three decoders with skips, a BiLSTM branch
-concatenated at the dec2 scale (T = cropsize / 2 frames), and a final
-decoder.
+enc2), ASPP bottleneck (channel dropout 0.1 in training), three decoders
+with skips, a BiLSTM branch concatenated at the dec2 scale (T = cropsize
+/ 2 frames), and a final decoder.
 
 The flat branch (serving): when `models/serving.pack_flat_encoders` has
 attached packed weights (`flat_enc`) and the input's geometry passes
@@ -107,7 +107,7 @@ class BaseNet(nn.Module):
         self.enc3 = Encoder(nout * 2, nout * 4, 3, 2, 1)
         self.enc4 = Encoder(nout * 4, nout * 6, 3, 2, 1)
         self.enc5 = Encoder(nout * 6, nout * 8, 3, 2, 1)
-        self.aspp = ASPPModule(nout * 8, nout * 8, dilations)
+        self.aspp = ASPPModule(nout * 8, nout * 8, dilations, dropout=True)
         self.dec4 = Decoder(nout * (6 + 8), nout * 6, 3, 1, 1)
         self.dec3 = Decoder(nout * (4 + 6), nout * 4, 3, 1, 1)
         self.dec2 = Decoder(nout * (2 + 4), nout * 2, 3, 1, 1)
@@ -150,7 +150,8 @@ class BaseNet(nn.Module):
         e3 = cp.from_flat(outs["enc3_conv2"], h // 4, w // 4, 4 * c)
         return e2.permute(0, 3, 1, 2), e3.permute(0, 3, 1, 2)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """`generator` draws the ASPP's channel dropout in train mode."""
         e1 = self.enc1(x)
         if self.flat_enc is not None and not self.training \
                 and self._flat_supported(x.shape):
@@ -160,7 +161,7 @@ class BaseNet(nn.Module):
             e3 = self.enc3(e2)
         e4 = self.enc4(e3)
         e5 = self.enc5(e4)
-        h = self.aspp(e5)
+        h = self.aspp(e5, generator)
         h = self.dec4(h, e4)
         h = self.dec3(h, e3)
         h = self.dec2(h, e2)

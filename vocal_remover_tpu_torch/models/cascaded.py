@@ -72,8 +72,12 @@ class CascadedNet(nn.Module):
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
 
-    def forward(self, x):
-        """(N, nin, >= max_bin, T) -> mask (N, nin, output_bin, T)."""
+    def forward(self, x, aux: bool = False, generator=None):
+        """(N, nin, >= max_bin, T) -> mask (N, nin, output_bin, T); with
+        `aux`, (mask, aux_mask), the aux head's mask on [aux1 (+) aux2]
+        (JAX `apply(aux=True)`; the reference has the head but never
+        calls it). `generator` draws the channel dropout in train mode
+        (none: no dropout)."""
         if x.dim() != 4 or x.shape[2] < self.max_bin:
             raise ValueError(
                 f"CascadedNet expects (N, C, >={self.max_bin} bins, T) "
@@ -88,22 +92,30 @@ class CascadedNet(nn.Module):
         bandw = x.shape[2] // 2
         l1_in = x[:, :, :bandw]
         h1_in = x[:, :, bandw:]
-        l1 = self.stg1_low_band_net(l1_in)
-        h1 = self.stg1_high_band_net(h1_in)
+        low1, low2 = self.stg1_low_band_net, self.stg2_low_band_net
+        l1 = low1[1](low1[0](l1_in, generator))
+        h1 = self.stg1_high_band_net(h1_in, generator)
         aux1 = torch.cat([l1, h1], dim=2)
 
-        l2 = self.stg2_low_band_net(torch.cat([l1_in, l1], dim=1))
-        h2 = self.stg2_high_band_net(torch.cat([h1_in, h1], dim=1))
+        l2 = low2[1](low2[0](torch.cat([l1_in, l1], dim=1), generator))
+        h2 = self.stg2_high_band_net(torch.cat([h1_in, h1], dim=1), generator)
         aux2 = torch.cat([l2, h2], dim=2)
 
-        f3 = self.stg3_full_band_net(torch.cat([x, aux1, aux2], dim=1))
-        return self._head(self.out.weight, f3)
+        f3 = self.stg3_full_band_net(torch.cat([x, aux1, aux2], dim=1),
+                                     generator)
+        mask = self._head(self.out.weight, f3)
+        if aux:
+            return mask, self._head(self.aux_out.weight,
+                                    torch.cat([aux1, aux2], dim=1))
+        return mask
 
     def _head(self, kernel, feat):
-        """The mask head always runs in full float32, whatever the
-        precision mode and the weights' resident dtype."""
+        """The mask head always runs in full float32 (float64 in the
+        parity mode), whatever the precision mode and the weights'
+        resident dtype."""
+        feat = config.at_least_float32(feat)
         with config.full_float32():
-            m = torch.nn.functional.conv2d(feat.float(), kernel.float())
+            m = torch.nn.functional.conv2d(feat, kernel.to(feat.dtype))
         if self.is_complex:
             m = self.bounded_mask(m)
         else:
@@ -128,6 +140,17 @@ class CascadedNet(nn.Module):
             if mask.shape[3] <= 0:
                 raise ValueError("input shorter than 2 * offset frames")
         return mask
+
+    def predict(self, x):
+        """The masked spectrogram x * mask, offset-trimmed in time (JAX
+        `predict`, reference nets.py:133-141): what validation scores.
+        Runs in the module's mode; the trainer calls it in eval."""
+        pred = x * self(x)
+        if self.offset > 0:
+            pred = pred[:, :, :, self.offset:-self.offset]
+            if pred.shape[3] <= 0:
+                raise ValueError("input shorter than 2 * offset frames")
+        return pred
 
 
 def param_count(model: nn.Module) -> int:

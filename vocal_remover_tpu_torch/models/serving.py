@@ -5,8 +5,10 @@ Counterpart of vocal_remover_tpu/models/serving.py. The JAX package
 transforms a variables tree; here the weights live in the `nn.Module`,
 so every transform returns a transformed COPY of the module (the
 original is not changed) whose eval forward gives the same masks within
-float tolerance. `models/convert.to_jax_variables` reads a transformed
-module back as the JAX package's transformed tree.
+float tolerance. The copy carries `serving_transformed = True`: it is
+for inference only, and the trainer (train/step.py) refuses it.
+`models/convert.to_jax_variables` reads a transformed module back as the
+JAX package's transformed tree.
 
   * `fold_batch_norms`   - eval BN is an affine map per channel; it is
     folded into the conv kernel (and the LSTM head's dense weights) in
@@ -75,6 +77,7 @@ def _fold_(model: nn.Module):
             dense.weight.copy_(dense.weight.double() * s[:, None])
             dense.bias.copy_(dense.bias.double() * s + shift)
             _set_identity(bn, torch.zeros_like(shift))
+    model.serving_transformed = True
     return model
 
 
@@ -87,6 +90,7 @@ def _cast_(model: nn.Module, dtype):
             p.data = p.data.to(dtype)
         if isinstance(m, FlatLayer):
             m.set_wst(m.wst.to(dtype))  # the bias adds in float32
+    model.serving_transformed = True
     return model
 
 
@@ -113,6 +117,7 @@ def _pack_(model: nn.Module):
                                      torch.from_numpy(lay["bias"]).to(dev),
                                      lay["s_list"])
         net.flat_enc = packed
+    model.serving_transformed = True
     return model
 
 

@@ -66,6 +66,22 @@ def get_compute_dtype() -> torch.dtype:
     return _compute_dtype
 
 
+def set_compute_dtype(dt: torch.dtype):
+    """Override the compute dtype (the JAX package's `set_compute_dtype`).
+    The gradient parity tests set torch.float64: in float32, forward
+    noise flips ReLU / LeakyReLU branches between frameworks, and only
+    float64 checks the backward math tightly. `precision()` restores it."""
+    global _compute_dtype
+    _compute_dtype = dt
+
+
+def at_least_float32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in float32, or as it is when it is float64 (the float64
+    parity mode): the parts pinned to float32 (BiLSTM, dense head, mask
+    head) run in "float32 or wider", as the JAX package's do."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 @contextlib.contextmanager
 def precision(p: str):
     """Run a block under precision `p`; restores the mode, the compute

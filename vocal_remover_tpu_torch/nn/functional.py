@@ -1,7 +1,7 @@
-"""Stateless NN primitives (NCHW), eval mode.
+"""Stateless NN primitives (NCHW).
 
-Counterpart of vocal_remover_tpu/nn/functional.py. Train-mode batch
-norm and dropout come with the training slice.
+Counterpart of vocal_remover_tpu/nn/functional.py: the conv, eval and
+train-mode batch norm, channel dropout and the activations.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import torch
 from vocal_remover_tpu_torch.nn import config
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def _pair(v):
@@ -43,6 +44,34 @@ def batch_norm(x, weight, bias, mean, var, axis: int = 1):
     shape[axis] = -1
     return (x * scale.to(x.dtype).reshape(shape)
             + shift.to(x.dtype).reshape(shape))
+
+
+def batch_norm_train(x, weight, bias, running_mean, running_var):
+    """Train batch norm over dim 1 of NCHW or (rows, C) `x`
+    (vocal_remover_tpu/nn/functional.py:108-157): normalizes with the
+    batch mean and biased variance, and updates `running_mean` /
+    `running_var` in place with momentum BN_MOMENTUM and the unbiased
+    variance. A bf16 `x` has its statistics taken in float32 (the
+    float32 weight and running buffers make them so) and its output in
+    bf16."""
+    return torch.nn.functional.batch_norm(
+        x, running_mean, running_var, weight, bias, training=True,
+        momentum=BN_MOMENTUM, eps=BN_EPS)
+
+
+def dropout2d(x, rate: float, generator: torch.Generator | None):
+    """Channel dropout (torch nn.Dropout2d, JAX `dropout2d`): zeroes
+    whole channels of NCHW `x` with probability `rate` and scales the
+    kept ones by 1 / (1 - rate). The mask is drawn from `generator`
+    (on x's device), so the same generator state gives the same mask;
+    no generator (or rate 0) is the identity."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def relu(x):

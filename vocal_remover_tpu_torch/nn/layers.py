@@ -1,4 +1,4 @@
-"""NN layer modules (NCHW, eval forward).
+"""NN layer modules (NCHW).
 
 Counterpart of vocal_remover_tpu/nn/layers.py. Activations are
 (N, C, F, T): H = frequency, W = time. Attribute paths follow the
@@ -6,6 +6,12 @@ reference's torch modules, so `state_dict()` keys are the reference's
 (`conv.0.weight`, `conv.1.running_mean`, `lstm.weight_ih_l0_reverse`,
 `dense.0.weight`, ...). Parameters are created empty; `reset_parameters`
 fills them with the torch layer defaults from an explicit generator.
+
+Train mode (`module.train()`) is the JAX package's `train=True`: batch
+norm on batch statistics with the running update, the Decoders' lerp 2x
+upsample, the BiLSTM's recurrence as the differentiable plain loop, and
+channel dropout where a module has it, drawn from the `generator` its
+forward is given (none: no dropout, as JAX's `rng=None`).
 """
 
 from __future__ import annotations
@@ -56,15 +62,19 @@ class Linear(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x):
-        """Full float32 in every precision mode (the JAX package pins
-        this product to HIGHEST); bf16-resident weights are cast up."""
+        """Full float32 (or float64) in every precision mode (the JAX
+        package pins this product to HIGHEST); bf16-resident weights are
+        cast up."""
+        x = config.at_least_float32(x)
         with config.full_float32():
-            return torch.nn.functional.linear(x.float(), self.weight.float(),
-                                              self.bias.float())
+            return torch.nn.functional.linear(x, self.weight.to(x.dtype),
+                                              self.bias.to(x.dtype))
 
 
 class BatchNorm(nn.Module):
-    """Eval batch norm over `axis` (1 for NCHW, -1 for (rows, C))."""
+    """Batch norm over `axis` (1 for NCHW, -1 for (rows, C)): running
+    statistics in eval; in train mode batch statistics, and the running
+    buffers and `num_batches_tracked` updated."""
 
     def __init__(self, nout, axis=1):
         super().__init__()
@@ -84,6 +94,11 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x):
+        if self.training:
+            with torch.no_grad():
+                self.num_batches_tracked += 1
+            return F.batch_norm_train(x, self.weight, self.bias,
+                                      self.running_mean, self.running_var)
         return F.batch_norm(x, self.weight, self.bias, self.running_mean,
                             self.running_var, self.axis)
 
@@ -135,18 +150,23 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Bilinear 2x upsample -> optional skip concat -> conv (eval: the
-    reference's channel dropout is off)."""
+    """Bilinear 2x upsample -> optional skip concat -> conv -> optional
+    channel dropout (train mode only)."""
 
-    def __init__(self, nin, nout, ksize=3, stride=1, pad=1, activ="relu"):
+    def __init__(self, nin, nout, ksize=3, stride=1, pad=1, activ="relu",
+                 dropout=False):
         super().__init__()
         self.conv1 = Conv2DBNActiv(nin, nout, ksize, 1, pad, activ=activ)
+        self.dropout = dropout
 
-    def forward(self, x, skip=None):
-        x = upsample2x(x)
+    def forward(self, x, skip=None, generator=None):
+        x = upsample2x(x, lerp=self.training)
         if skip is not None:
             x = torch.cat([x, _crop_time(skip, x)], dim=1)
-        return self.conv1(x)
+        h = self.conv1(x)
+        if self.dropout and self.training:
+            h = F.dropout2d(h, 0.1, generator)
+        return h
 
 
 class ASPPModule(nn.Module):
@@ -154,7 +174,7 @@ class ASPPModule(nn.Module):
     freq-pooled branch; dilations are (freq, time) anisotropic pairs."""
 
     def __init__(self, nin, nout, dilations=((4, 2), (8, 4), (12, 6)),
-                 activ="relu"):
+                 activ="relu", dropout=False):
         super().__init__()
         # reference: conv1 = Sequential(AdaptiveAvgPool2d((1, None)), conv)
         self.conv1 = nn.Sequential(
@@ -168,14 +188,18 @@ class ASPPModule(nn.Module):
         self.conv5 = Conv2DBNActiv(nin, nout, 3, 1, dilations[2],
                                    dilations[2], activ=activ)
         self.bottleneck = Conv2DBNActiv(nout * 5, nout, 1, 1, 0, activ=activ)
+        self.dropout = dropout
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h, w = x.shape[2], x.shape[3]
         pooled = x.mean(dim=2, keepdim=True)
         feat1 = resize_bilinear(self.conv1[1](pooled), h, w)
         out = torch.cat([feat1, self.conv2(x), self.conv3(x), self.conv4(x),
                          self.conv5(x)], dim=1)
-        return self.bottleneck(out)
+        out = self.bottleneck(out)
+        if self.dropout and self.training:
+            out = F.dropout2d(out, 0.1, generator)
+        return out
 
 
 class LSTMModule(nn.Module):

@@ -8,8 +8,14 @@ projection for all timesteps is one matrix product outside the kernel
 in time and stacked on the batch axis, and the recurrence
 (nn/lstm_kernel.py) runs both directions at once in float32. Gate order
 follows torch: input, forget, cell, output. The whole BiLSTM runs in
-float32 in every precision mode (vocal_remover_tpu/nn/lstm.py:54): a bf16
-input and bf16-resident weights are cast up on the way in.
+float32 or wider in every precision mode (vocal_remover_tpu/nn/lstm.py:54):
+a bf16 input and bf16-resident weights are cast up on the way in, a
+float64 input (the gradient parity tests) stays float64.
+
+In training (`train=True`, a BiLSTM module in train mode) the recurrence
+is `lstm_kernel.recurrence_plain` under autograd, as JAX trains with its
+`lax.scan`; the op, and so the kernel, has no gradient (ROADMAP.md
+A9(b)). Eval, validation included, runs the op: the kernel on the card.
 """
 
 from __future__ import annotations
@@ -19,25 +25,29 @@ import math
 import torch
 from torch import nn
 
-from vocal_remover_tpu_torch.nn import lstm_kernel
+from vocal_remover_tpu_torch.nn import config, lstm_kernel
 
 
-def bilstm(params, x):
+def bilstm(params, x, train: bool = False):
     """(T, N, In) -> (T, N, 2H), zero initial state.
 
     params: {"fwd": d, "bwd": d} with d = {"w_ih": (In, 4H), "w_hh":
     (H, 4H), "b_ih": (4H,), "b_hh": (4H,)} (the JAX package's layout)."""
-    x = x.float()
-    pf, pb = ({k: v.float() for k, v in params[d].items()}
+    x = config.at_least_float32(x)
+    pf, pb = ({k: v.to(x.dtype) for k, v in params[d].items()}
               for d in ("fwd", "bwd"))
     n = x.shape[1]
     xg_f = torch.einsum("tni,ih->tnh", x, pf["w_ih"]) + pf["b_ih"] + pf["b_hh"]
     xg_b = (torch.einsum("tni,ih->tnh", x.flip(0), pb["w_ih"])
             + pb["b_ih"] + pb["b_hh"])
     xg = torch.cat([xg_f, xg_b], dim=1)  # (T, 2N, 4H), contiguous
-    # (2, 4H, H): the kernel's layout, torch's weight_hh_l0 stacked
-    w_cols = torch.stack([pf["w_hh"].t(), pb["w_hh"].t()])
-    hs = lstm_kernel.recurrence_cols(xg, w_cols)  # (T, 2N, H)
+    if train:
+        hs = lstm_kernel.recurrence_plain(
+            xg, torch.stack([pf["w_hh"], pb["w_hh"]]))
+    else:
+        # (2, 4H, H): the kernel's layout, torch's weight_hh_l0 stacked
+        w_cols = torch.stack([pf["w_hh"].t(), pb["w_hh"].t()])
+        hs = lstm_kernel.recurrence_cols(xg, w_cols)  # (T, 2N, H)
     return torch.cat([hs[:, :n], hs[:, n:].flip(0)], dim=-1)
 
 
@@ -78,4 +88,4 @@ class BiLSTM(nn.Module):
         return {"fwd": direction(""), "bwd": direction("_reverse")}
 
     def forward(self, x):
-        return bilstm(self.params(), x)
+        return bilstm(self.params(), x, train=self.training)

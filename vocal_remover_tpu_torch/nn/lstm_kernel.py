@@ -45,7 +45,9 @@ def undo_relayout(w_cols: torch.Tensor) -> torch.Tensor:
 
 def recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """xg (T, 2N, 4H), w_hh (2, H, 4H) -> hs (T, 2N, H); zero initial
-    state, gate order i, f, g, o, all f32. Same arithmetic as the kernel."""
+    state, gate order i, f, g, o, in the inputs' dtype (float32; float64
+    in the gradient parity tests). Same arithmetic as the kernel, and
+    differentiable: training runs it under autograd (nn/lstm.py)."""
     t_len, two_n, four_h = xg.shape
     n, hidden = two_n // 2, four_h // 4
     h = xg.new_zeros(2, n, hidden)

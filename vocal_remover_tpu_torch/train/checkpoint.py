@@ -1,0 +1,74 @@
+"""Training-state checkpoints (atomic, resumable) and model checkpoints.
+
+Counterpart of vocal_remover_tpu/train/checkpoint.py. The full training
+state (the model's parameters and BatchNorm statistics, Adam's state and
+learning rate) is one `torch.save` file, `train_state.pt`, with the JAX
+package's `.meta.json` beside it (epoch, best loss, step counter,
+plateau scheduler); both are written atomically. Resuming from
+the JAX package's flax msgpack state is ROADMAP.md A9. `save_model`
+writes the native `.vrt.npz` that inference (and the JAX package's
+`convert.load_native`) loads.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import tempfile
+
+import torch
+
+from vocal_remover_tpu_torch.models import convert
+
+STATE_NAME = "train_state.pt"
+
+
+def _atomic_write(path: str, data: bytes):
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def save_train_state(path: str, trainer, scheduler, epoch: int,
+                     best_loss: float):
+    buf = io.BytesIO()
+    torch.save({"model": trainer.model.state_dict(),
+                "optimizer": trainer.optimizer.state_dict()}, buf)
+    meta = {
+        "epoch": epoch,
+        "best_loss": best_loss,
+        "step_counter": trainer._step_counter,
+        "scheduler": scheduler.state_dict(),
+        "extra": {},  # kept: the JAX package's .meta.json has the key
+    }
+    _atomic_write(path, buf.getvalue())
+    _atomic_write(path + ".meta.json", json.dumps(meta).encode())
+
+
+def load_train_state(path: str, trainer, scheduler):
+    """Restore a trainer and scheduler in place; returns (epoch,
+    best_loss) of the saved epoch."""
+    # on the CPU: load_state_dict moves each tensor to its parameter's
+    # device, and keeps Adam's step counts on the host as Adam makes them
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    trainer.model.load_state_dict(state["model"])
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    scheduler.load_state_dict(meta["scheduler"])
+    trainer._step_counter = meta["step_counter"]
+    return meta["epoch"], meta["best_loss"]
+
+
+def save_model(path: str, model):
+    """Model-only checkpoint in the native format (what inference loads)."""
+    convert.save_native(path, convert.to_jax_variables(model),
+                        convert.model_config(model))

@@ -1,0 +1,226 @@
+"""Training and validation steps.
+
+Counterpart of vocal_remover_tpu/train/step.py `Trainer` (reference
+train.py:68-134 `train_epoch` / `validate_epoch`): L1 mask loss, Adam,
+gradient accumulation with a leftover flush, per-sample loss averaging,
+validation on the offset-trimmed masked spectrogram.
+
+  * The model trains in place (`model.train()`): batch norm on batch
+    statistics with the running update on every microbatch, the
+    Decoders' lerp upsample, and the BiLSTM's recurrence as the plain
+    loop under autograd (the recurrence kernel has no backward; ROADMAP.md
+    A9(b)). Validation runs the model in eval, so on the card its
+    BiLSTMs run the recurrence kernel.
+  * Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`, which
+    computes what `optax.adam` computes.
+  * With `accumulation_steps` A > 1 each microbatch adds grad / A, Adam
+    steps every A microbatches, and a leftover is flushed at the end of
+    the epoch; A == 1 is the plain step.
+  * Losses are summed on the device: one host read per epoch.
+  * Dropout draws from a generator seeded by (seed, step counter), as
+    JAX folds the step counter into its key, so a resumed run draws the
+    same masks as an uninterrupted one; `dropout=False` turns it off.
+  * Batches are staged host -> device by a background thread, from
+    pinned memory on a side stream, in `transfer_dtype` (None: as the
+    loader gives them), and cast up to float32 (or wider) on the device.
+
+Not ported (ROADMAP.md A9): the complex-mask objective and the wave
+loss, `remat`, the device-resident dataset and int8 staging.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from vocal_remover_tpu_torch import resolve_device
+from vocal_remover_tpu_torch.train import losses
+from vocal_remover_tpu_torch.train.prefetch import device_prefetch
+
+# batches staged ahead of the step by the staging thread
+PREFETCH = 2
+
+class Trainer:
+    def __init__(self, model, learning_rate, accumulation_steps=1, seed=0,
+                 dropout=True, transfer_dtype=None, aux_lambda=0.0,
+                 device=None):
+        """Trains `model` (a CascadedNet) in place, on `device` (None:
+        the card; "cpu" when asked). A model with the serving transforms
+        applied (models/serving.py: folded BatchNorm, bf16 weights,
+        packed encoders) is refused: it is for inference only."""
+        if getattr(model, "serving_transformed", False):
+            raise ValueError(
+                "this model has the serving transforms applied (folded "
+                "BatchNorm, cast or packed weights: models/serving.py); "
+                "train the model as loaded, before serving_variables")
+        if model.is_complex:
+            raise ValueError("complex-mask training is not ported to the "
+                             "GPU package yet (ROADMAP.md A9)")
+        if accumulation_steps < 1:
+            raise ValueError(f"accumulation_steps {accumulation_steps} < 1")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.accumulation_steps = int(accumulation_steps)
+        self.seed = int(seed)
+        self.dropout = dropout
+        self.transfer_dtype = transfer_dtype
+        self.aux_lambda = float(aux_lambda)
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+            eps=1e-8)
+        self.optimizer.zero_grad(set_to_none=True)
+        self._step_counter = 0
+        # host seconds the last epoch's steps waited for their staged batch
+        self.loader_wait_s = 0.0
+        self._upload = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    # ------------------------------------------------------------------
+    # one step's pieces
+    # ------------------------------------------------------------------
+
+    def _generator(self):
+        """The dropout generator of the current step (None without
+        dropout): seeded by (seed, step counter)."""
+        if not self.dropout:
+            return None
+        state = np.random.SeedSequence(
+            [0xD509, self.seed % 2**32, self._step_counter])
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(state.generate_state(1, np.uint64)[0] >> 1))
+        return g
+
+    @staticmethod
+    def _upcast(a):
+        """Reduced staging dtypes (bf16) up to float32 before the loss;
+        float64 (the parity tests) stays."""
+        return a.to(torch.promote_types(a.dtype, torch.float32))
+
+    def _loss(self, X, y, generator):
+        X, y = self._upcast(X), self._upcast(y)
+        if self.aux_lambda > 0:
+            mask, aux_mask = self.model(X, aux=True, generator=generator)
+            return (losses.mask_l1_loss(mask, X, y) + self.aux_lambda
+                    * losses.mask_l1_loss(aux_mask, X, y))
+        return losses.mask_l1_loss(self.model(X, generator=generator), X, y)
+
+    def _put(self, a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.transfer_dtype is not None:
+            t = t.to(self.transfer_dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage(self, batch):
+        """(X, y) host batch -> (X_dev, y_dev, batch length, event): the
+        copies run on the upload stream; `event` marks their end (None
+        on the CPU)."""
+        X, y = batch
+        if self._upload is None:
+            return self._put(X), self._put(y), len(X), None
+        with torch.cuda.device(self.device), torch.cuda.stream(self._upload):
+            Xd, yd = self._put(X), self._put(y)
+            ev = torch.cuda.Event()
+            ev.record()
+        return Xd, yd, len(X), ev
+
+    def _staged(self, loader):
+        """Iterate (X_dev, y_dev, batch length), staged PREFETCH batches
+        ahead on a background thread; the time spent waiting for each is
+        added to `loader_wait_s`."""
+        it = device_prefetch(iter(loader), self._stage, depth=PREFETCH)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                Xd, yd, blen, ev = next(it)
+            except StopIteration:
+                return
+            self.loader_wait_s += time.perf_counter() - t0
+            if ev is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(ev)
+                Xd.record_stream(cur)
+                yd.record_stream(cur)
+            yield Xd, yd, blen
+
+    # ------------------------------------------------------------------
+    # host-side drivers
+    # ------------------------------------------------------------------
+
+    @property
+    def learning_rate(self) -> float:
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    def set_learning_rate(self, lr: float):
+        for group in self.optimizer.param_groups:
+            group["lr"] = float(lr)
+
+    def compute_grads(self, X, y):
+        """(loss, {parameter name: gradient}) for one batch in train mode,
+        with NO update: parameters, BatchNorm statistics, Adam state and
+        any accumulated gradient are left as they were. A parameter the
+        loss does not reach (aux_out without aux_lambda) gets zeros."""
+        Xd, yd, _, ev = self._stage((X, y))
+        if ev is not None:
+            ev.synchronize()
+        saved = {k: b.clone() for k, b in self.model.named_buffers()}
+        self.model.train()
+        try:
+            loss = self._loss(Xd, yd, self._generator())
+            names, params = zip(*self.model.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            with torch.no_grad():
+                for k, b in self.model.named_buffers():
+                    b.copy_(saved[k])
+        return float(loss.detach()), {
+            n: (g if g is not None else torch.zeros_like(p)).detach()
+            for n, p, g in zip(names, params, grads)}
+
+    def train_epoch(self, loader) -> float:
+        """One epoch; returns the dataset-mean per-sample loss (reference
+        train.py:68-105 semantics, the leftover flush included)."""
+        A = self.accumulation_steps
+        self.model.train()
+        self.loader_wait_s = 0.0
+        sum_loss, n_samples, itr = None, 0, -1
+        for itr, (Xd, yd, blen) in enumerate(self._staged(loader)):
+            generator = self._generator()
+            self._step_counter += 1
+            loss = self._loss(Xd, yd, generator)
+            if A == 1:
+                loss.backward()
+                self._apply()
+            else:
+                (loss * (1.0 / A)).backward()
+                if (itr + 1) % A == 0:
+                    self._apply()
+            loss = loss.detach() * blen
+            sum_loss = loss if sum_loss is None else sum_loss + loss
+            n_samples += blen
+        if A > 1 and itr >= 0 and (itr + 1) % A != 0:
+            self._apply()
+        return 0.0 if sum_loss is None else float(sum_loss) / n_samples
+
+    def _apply(self):
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def validate_epoch(self, loader) -> float:
+        """Dataset-mean per-sample L1 of `model.predict` (eval) against
+        the target centre-cropped in time (reference train.py:122-130)."""
+        self.model.eval()
+        sum_loss, n_samples = None, 0
+        for Xd, yd, blen in self._staged(loader):
+            X, y = self._upcast(Xd), self._upcast(yd)
+            pred = self.model.predict(X)
+            t = pred.shape[3]
+            s = (y.shape[3] - t) // 2
+            loss = losses.l1(pred, y[:, :, :, s:s + t]) * blen
+            sum_loss = loss if sum_loss is None else sum_loss + loss
+            n_samples += blen
+        return 0.0 if sum_loss is None else float(sum_loss) / n_samples
