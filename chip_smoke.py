@@ -93,7 +93,25 @@ Phases (each prints a line; any failure exits non-zero):
      backward share of the step (alone, and the step's wall with it
      replaced by its forward kernel and zero gradients), validation ms a
      patch, an epoch from the loader with the steps' wait on it, and one
-     profiled epoch (busy share, launches a step, top kernels);
+     profiled epoch (busy share, launches a step, top kernels); then the
+     complex-mask run: cli.train --is_complex --wave_loss sdr, one epoch
+     at the same defaults on the same songs (finite losses, the
+     recurrence kernel 5 x validation chunks and never in the step), its
+     checkpoint through cli.evaluate on the card, compute_grads of the
+     complex CascadedNet(256, 128, 8, 16) with the wave term in float64
+     card vs CPU (GRAD_RTOL), and the warm complex step without and with
+     the wave term beside the magnitude step (ms, samples/s, peak);
+  7d. tools ([tools]): three seeded 30 s pairs through cli.evaluate with
+     the flagship checkpoint (the device pipeline first and warm, then
+     --postprocess --tta: wall, xRT, peak memory, the mean metrics) and
+     cli.pseudo (s a song, (2, 1025, T) complex64 outputs), the
+     recurrence kernel held to 5 launches a chunk; a 4 s pair through
+     both on the card and on the CPU at -B 2 (EVAL_CROSS_DB,
+     PSEUDO_CROSS_TOL); on the host augment -p -1 on one pair (s a
+     song), spec_debug and dataset_images (their WAVs and images
+     checked), and plot_log on [train]'s loss log (the summary line, then
+     the PNG, or where matplotlib cannot be imported a non-zero exit
+     naming it);
   8. lab path: the port's two conv tools at their default shapes and dtype
      (scripts/conv_kernel_lab.py: variants A, C, D chained and checked
      against conv2d; scripts/bench_conv_kernel.py: variant A against the
@@ -1599,8 +1617,9 @@ def step_ms_without_plain_recurrence(trainer, steps) -> float:
         lstm_kernel.recurrence_plain = plain
 
 
-def grads_card_vs_cpu(seed):
-    """compute_grads of SMALL_NET in float64 on the card and on the CPU;
+def grads_card_vs_cpu(seed, is_complex=False, wave_loss=None):
+    """compute_grads of SMALL_NET (complex-mask with `is_complex`, the
+    wave term with `wave_loss`) in float64 on the card and on the CPU;
     -> (loss relative difference, worst gradient leaf difference over
     its tolerance scale, leaves)."""
     from vocal_remover_tpu_torch.models.cascaded import CascadedNet
@@ -1608,15 +1627,20 @@ def grads_card_vs_cpu(seed):
     from vocal_remover_tpu_torch.train.step import Trainer
 
     rng = np.random.default_rng(seed)
-    X = np.abs(rng.standard_normal((2, 2, SMALL_NET[0] // 2 + 1, 256)))
+    # magnitudes, or signed [real; imaginary] channel stacks
+    X = rng.standard_normal((2, 4 if is_complex else 2,
+                             SMALL_NET[0] // 2 + 1, 256))
+    X = X if is_complex else np.abs(X)
     y = X * rng.uniform(0.0, 1.0, X.shape)
     config.set_compute_dtype(torch.float64)
     try:
-        model = CascadedNet(*SMALL_NET, generator=torch.Generator()
-                            .manual_seed(seed)).double()
+        model = CascadedNet(*SMALL_NET, is_complex=is_complex,
+                            generator=torch.Generator().manual_seed(seed)
+                            ).double()
         res = {}
         for dev in ("cpu", "cuda"):
-            t = Trainer(copy.deepcopy(model), 1e-3, dropout=False, device=dev)
+            t = Trainer(copy.deepcopy(model), 1e-3, dropout=False,
+                        wave_loss=wave_loss, device=dev)
             loss, grads = t.compute_grads(X, y)
             res[dev] = loss, {k: g.cpu().numpy() for k, g in grads.items()}
     finally:
@@ -1626,6 +1650,108 @@ def grads_card_vs_cpu(seed):
     worst = max(np.abs(gg[k] - g).max()
                 / max(np.abs(g).max(), 1e-3 * scale) for k, g in gc_.items())
     return abs(lg - lc) / abs(lc), worst, len(gc_)
+
+
+def train_complex(root, data, seed, counters, smi, mag_step_ms, mag_peak):
+    """The complex-mask run of [train]: cli.train --is_complex --wave_loss
+    sdr for one epoch at the CLI's defaults on [train]'s songs (the
+    recurrence kernel 5 x validation chunks, none in the step); its
+    checkpoint through cli.evaluate on the card; float64 compute_grads of
+    the complex SMALL_NET with the wave term, card vs CPU; the warm
+    complex step without and with the wave term."""
+    from vocal_remover_tpu_torch.cli import evaluate
+    from vocal_remover_tpu_torch.cli import train as train_cli
+    from vocal_remover_tpu_torch.data import cache, dataset, pairing
+    from vocal_remover_tpu_torch.data.loader import Loader
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    out = os.path.join(root, "models_complex")
+    argv = (["-d", data, "--output_dir", out, "-E", "1"] + TRAIN_ARGS
+            + ["--is_complex", "--wave_loss", "sdr"])
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        wall, launches, log = run_train_cli(argv, counters, root)
+    finally:
+        os.chdir(cwd)
+    patches = glob.glob(os.path.join(
+        root, f"cs256_sr{SR}_hl{TRAIN_HOP}_nf{TRAIN_NFFT}_of64", "*.npz"))
+    chunks = -(-len(patches) // VAL_BATCH)
+    check(len(log) == 1 and np.isfinite(log).all(),
+          f"train --is_complex: loss log {log}")
+    check_launches("train --is_complex", launches, 5 * chunks)
+    print(f"[train] cli.train --is_complex --wave_loss sdr -E 1 "
+          f"{' '.join(TRAIN_ARGS)}: {wall:.3f} s wall, losses (train, val) "
+          f"{log}, launches {launches} = 5 x {chunks} validation chunks, "
+          f"none in the steps; {smi}", flush=True)
+
+    # the checkpoint through cli.evaluate on the first song's pair
+    ckpt = glob.glob(os.path.join(out, "model_iter*.vrt.npz"))[0]
+    mix, inst = (os.path.join(root, "eval_complex", sub)
+                 for sub in ("mixtures", "instruments"))
+    for sub, dst in (("mixtures", mix), ("instruments", inst)):
+        os.makedirs(dst)
+        os.link(os.path.join(data, sub, "song0.wav"),
+                os.path.join(dst, "song0.wav"))
+    want = sep_chunks(aligned_lengths(mix, inst), EVAL_BATCH, False)
+    wall, launches, peak, res = evaluate_json(
+        ckpt, mix, inst, os.path.join(root, "eval_complex.json"), counters)
+    check(len(res["songs"]) == 1, f"evaluate complex: {res}")
+    check_launches("evaluate complex", launches, 5 * want)
+    print(f"[train] {os.path.basename(ckpt)} (complex) through cli.evaluate "
+          f"on the card, one {TRAIN_SECONDS} s pair: {wall:.3f} s wall, "
+          f"launches {launches} (5 x {want} chunks), SDR inst "
+          f"{res['mean']['instrumental_sdr']:.4f} / vocal "
+          f"{res['mean']['vocal_sdr']:.4f} dB", flush=True)
+
+    rel, worst, leaves = grads_card_vs_cpu(seed, is_complex=True,
+                                           wave_loss="sdr")
+    check(rel <= GRAD_RTOL and worst <= GRAD_RTOL,
+          f"train: complex float64 compute_grads card vs CPU: loss "
+          f"{rel:.3g}, worst leaf {worst:.3g} (tol {GRAD_RTOL})")
+    print(f"[train] compute_grads CascadedNet{SMALL_NET} is_complex "
+          f"wave_loss sdr, float64, card vs CPU: loss {rel:.3g} relative, "
+          f"worst of {leaves} gradient leaves {worst:.3g} of its max |g| "
+          f"(tol {GRAD_RTOL})", flush=True)
+
+    cli_seed = train_cli.build_parser().get_default("seed")
+    random.seed(cli_seed)
+    train_files, _ = pairing.train_val_split(data, "random", 0.25, [])
+    tset = cache.make_training_set(train_files, SR, TRAIN_HOP, TRAIN_NFFT)
+    ramp = train_cli.reduction_weight_ramp(TRAIN_NFFT, SR, 0.2)
+    batches = list(Loader(dataset.TrainingSet(
+        tset * 8, 256, 0.0, ramp, 0.0, 1.0, seed=cli_seed, is_complex=True),
+        TRAIN_BATCH, shuffle=True, seed=cli_seed))
+    check(batches[0][0].shape == (TRAIN_BATCH, 4, 1025, 256),
+          f"complex batch {batches[0][0].shape}")
+    steps = (batches * 2)[:STEP_REPEAT]
+    with config.precision("highest"):
+        for wave_loss in (None, "sdr"):
+            model = CascadedNet(TRAIN_NFFT, TRAIN_HOP, 32, 128,
+                                is_complex=True, generator=torch.Generator()
+                                .manual_seed(seed))
+            trainer = Trainer(model, 1e-3, seed=seed, wave_loss=wave_loss)
+            trainer.train_epoch(batches[:2])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch(steps)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / len(steps)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check(np.isfinite(loss), f"complex step {wave_loss}: {loss}")
+            print(f"[train] warm complex step (is_complex, wave_loss "
+                  f"{wave_loss}), batch {TRAIN_BATCH} crop 256 highest: "
+                  f"{step_ms:.2f} ms ({len(steps)} steps, batches in "
+                  f"memory), {1e3 * TRAIN_BATCH / step_ms:.2f} samples/s, "
+                  f"peak {peak:.2f} GiB; the magnitude step in this run "
+                  f"{mag_step_ms:.2f} ms, peak {mag_peak:.2f} GiB "
+                  f"({step_ms / mag_step_ms:.3f}x); {smi}", flush=True)
+            del trainer, model
+            gc.collect()
+            torch.cuda.empty_cache()
 
 
 def phase_train(tmp, seed, counters, smi):
@@ -1831,9 +1957,273 @@ def phase_train(tmp, seed, counters, smi):
               flush=True)
     del prof, kernels, trainer, model
     gc.collect()
+    torch.cuda.empty_cache()
+    train_complex(root, data, seed, counters, smi, step_ms, peak)
     print(f"[train] phase: {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
     return first_launches
+
+
+# the tools slice ([tools]): the dataset and evaluation CLIs on the
+# flagship checkpoint of [main]
+TOOLS_SONGS = 3
+TOOLS_SECONDS = 30
+CROSS_SECONDS = 4  # the pair run on the card and on the CPU
+EVAL_BATCH = 8  # the evaluate CLI's default --batchsize
+PSEUDO_BATCH = 4  # the pseudo CLI's default --batchsize
+# evaluate's JSON on the card vs the CPU (dB), pseudo's .npy on the card
+# vs the CPU (largest |difference| over the largest |z|)
+EVAL_CROSS_DB = 0.01
+PSEUDO_CROSS_TOL = 1e-4
+
+
+def write_pairs(root, n, seconds, seed):
+    """n seeded `train_pair` songs as root/mixtures and root/instruments
+    WAVs; -> (mixtures dir, instruments dir)."""
+    from vocal_remover_tpu_torch.utils import audio
+
+    dirs = [os.path.join(root, sub) for sub in ("mixtures", "instruments")]
+    for d in dirs:
+        os.makedirs(d)
+    for i in range(n):
+        for d, wave in zip(dirs, train_pair(seconds, seed + i)):
+            audio.write_wav(os.path.join(d, f"song{i}.wav"), wave, SR)
+    return dirs
+
+
+def aligned_lengths(mix_dir, inst_dir):
+    """Samples of each pair after the tools' alignment (what they
+    separate)."""
+    from vocal_remover_tpu_torch.data import pairing
+    from vocal_remover_tpu_torch.utils import audio
+    from vocal_remover_tpu_torch.utils.spec import align_wave_head_and_tail
+
+    out = []
+    for mix, inst in pairing.make_pair(mix_dir, inst_dir):
+        X, y = (audio.load(p, sr=SR)[0] for p in (mix, inst))
+        out.append(align_wave_head_and_tail(X, y, SR)[0].shape[-1])
+    return out
+
+
+def sep_chunks(lengths, batch, tta):
+    """Chunks of `batch` patches a separation of songs of these lengths
+    runs (crop 256; with TTA both passes), whichever path: the device
+    pipeline tops its last chunk up, the spectrogram path pads to whole
+    chunks."""
+    roi = 256 - 2 * 64
+    passes = (0, roi // 2) if tta else (0,)
+    return sum(-(-patch_count(n, 256, extra) // batch)
+               for n in lengths for extra in passes)
+
+
+def run_tool(module, argv, counters):
+    """module.main(argv) with every launch count reset just before and
+    read just after, its standard output kept; -> (wall s, {kernel:
+    launches}, output, peak device GiB)."""
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    said = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (wall, {k: w.launches for k, w in counters.items()},
+            said.getvalue(), torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_launches(label, launches, want_rec):
+    for k, n in launches.items():
+        want = want_rec if k == "lstm_recurrence" else 0
+        check(n == want, f"{label}: {k} launched {n} times, want {want}")
+
+
+def evaluate_json(ckpt, mix, inst, out, counters, flags=()):
+    """The evaluate CLI with --json; -> (wall, launches, peak, JSON)."""
+    from vocal_remover_tpu_torch.cli import evaluate
+
+    wall, launches, _, peak = run_tool(
+        evaluate, ["-P", ckpt, "-m", mix, "-i", inst, "--json", out]
+        + list(flags), counters)
+    with open(out) as f:
+        res = json.load(f)
+    for row in res["songs"] + [res["mean"]]:
+        check(all(np.isfinite(v) for k, v in row.items() if k != "song"),
+              f"evaluate {flags}: {row}")
+    return wall, launches, peak, res
+
+
+def phase_tools(tmp, ckpt, seed, counters, smi):
+    """The tools slice ([tools]) at full width: evaluate (device pipeline,
+    then --postprocess --tta) and pseudo on TOOLS_SONGS seeded 30 s pairs
+    with the flagship .vrt.npz, the recurrence kernel's launches held to
+    5 a chunk; a CROSS_SECONDS pair through both on the card and on the
+    CPU; augment -p -1, spec_debug and dataset_images on the host; and
+    plot_log on [train]'s loss log."""
+    from vocal_remover_tpu_torch.cli import (
+        augment,
+        dataset_images,
+        plot_log,
+        pseudo,
+        spec_debug,
+    )
+    from vocal_remover_tpu_torch.utils import audio
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(tmp, "tools")
+    mix, inst = write_pairs(root, TOOLS_SONGS, TOOLS_SECONDS, seed + 200)
+    lengths = aligned_lengths(mix, inst)
+    audio_s = sum(lengths) / SR
+    print(f"[tools] {TOOLS_SONGS} pairs of {TOOLS_SECONDS} s stereo {SR} Hz "
+          f"(train_pair), {audio_s:.2f} s aligned; flagship {ckpt}",
+          flush=True)
+
+    # evaluate: the device pipeline (first, warm), then the spectrogram
+    # path with merge_artifacts and TTA, warm (the same chunks of 8 the
+    # two runs before it launched)
+    for flags, runs in (([], ("first", "warm")),
+                        (["--postprocess", "--tta"], ("warm",))):
+        tta = "--tta" in flags
+        chunks = sep_chunks(lengths, EVAL_BATCH, tta)
+        for run in runs:
+            wall, launches, peak, res = evaluate_json(
+                ckpt, mix, inst, os.path.join(root, "eval.json"), counters,
+                flags)
+            label = f"evaluate {' '.join(flags) or '(device pipeline)'} {run}"
+            check(len(res["songs"]) == TOOLS_SONGS, f"{label}: {res}")
+            check_launches(label, launches, 5 * chunks)
+            m = res["mean"]
+            print(f"[tools] {label}: {wall:.3f} s wall, "
+                  f"{audio_s / wall:.2f} x real time, launches {launches} "
+                  f"(5 x {chunks} chunks of {EVAL_BATCH}), peak "
+                  f"{peak:.2f} GiB; mean SDR inst "
+                  f"{m['instrumental_sdr']:.4f} / vocal {m['vocal_sdr']:.4f} "
+                  f"dB, SI-SDR {m['instrumental_si_sdr']:.4f} / "
+                  f"{m['vocal_si_sdr']:.4f}, median "
+                  f"{m['instrumental_median_sdr']:.4f} / "
+                  f"{m['vocal_median_sdr']:.4f}; {smi}", flush=True)
+
+    # pseudo: TTA on the vocal spectrogram of each pair
+    out = os.path.join(root, "pseudo")
+    chunks = sep_chunks(lengths, PSEUDO_BATCH, True)
+    wall, launches, _, peak = run_tool(
+        pseudo, ["-P", ckpt, "-m", mix, "-i", inst, "-o", out], counters)
+    check_launches("pseudo", launches, 5 * chunks)
+    for i, n in enumerate(lengths):
+        z = np.load(os.path.join(out, f"song{i}_PseudoInstruments.npy"))
+        check(z.dtype == np.complex64 and z.shape == (
+            2, 1025, 1 + n // 1024) and np.isfinite(z).all(),
+            f"pseudo song{i}: {z.dtype} {z.shape}")
+        check(os.path.exists(os.path.join(
+            out, f"song{i}_PseudoInstruments.wav")), "pseudo: no placeholder")
+    print(f"[tools] pseudo: {wall:.3f} s wall, {wall / TOOLS_SONGS:.3f} s a "
+          f"song, launches {launches} (5 x {chunks} chunks of "
+          f"{PSEUDO_BATCH}), peak {peak:.2f} GiB, outputs (2, 1025, T) "
+          f"complex64; {smi}", flush=True)
+
+    # one short pair on the card and on the CPU (plain recurrence), at
+    # batch 2: the CPU runs no zero-padded patches
+    cmix, cinst = write_pairs(os.path.join(root, "cross"), 1,
+                              CROSS_SECONDS, seed + 300)
+    res, z = {}, {}
+    for gpu in ("0", "-1"):
+        _, _, _, res[gpu] = evaluate_json(
+            ckpt, cmix, cinst, os.path.join(root, f"cross{gpu}.json"),
+            counters, ["--gpu", gpu, "-B", "2"])
+        d = os.path.join(root, f"cross-pseudo{gpu}")
+        run_tool(pseudo, ["-P", ckpt, "-m", cmix, "-i", cinst, "-o", d,
+                          "--gpu", gpu, "-B", "2"], counters)
+        z[gpu] = np.load(os.path.join(d, "song0_PseudoInstruments.npy"))
+    db = max(abs(res["0"]["songs"][0][k] - v)
+             for k, v in res["-1"]["songs"][0].items() if k != "song")
+    rel = float(np.abs(z["0"] - z["-1"]).max() / np.abs(z["-1"]).max())
+    check(db <= EVAL_CROSS_DB, f"evaluate card vs CPU: {db} dB")
+    check(rel <= PSEUDO_CROSS_TOL, f"pseudo card vs CPU: {rel}")
+    print(f"[tools] {CROSS_SECONDS} s pair at -B 2, card vs CPU: "
+          f"evaluate's six metrics within {db:.3g} dB (tol {EVAL_CROSS_DB}), "
+          f"pseudo's .npy within {rel:.3g} of its largest |z| (tol "
+          f"{PSEUDO_CROSS_TOL})", flush=True)
+
+    # the host tools; augment on the first pair alone
+    amix, ainst = (os.path.join(root, "augment", sub)
+                   for sub in ("mixtures", "instruments"))
+    for src, dst in ((mix, amix), (inst, ainst)):
+        os.makedirs(dst)
+        os.link(os.path.join(src, "song0.wav"),
+                os.path.join(dst, "song0.wav"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        augment.main(["-m", amix, "-i", ainst, "-p", "-1"])
+    wall = time.perf_counter() - t0
+    sub = f"sr{SR}_hl1024_nf2048"
+    for d in (amix, ainst):
+        z = np.load(os.path.join(d, sub, "song0_pitch-1.npy"))
+        check(z.dtype == np.complex64 and z.shape[:2] == (2, 1025)
+              and np.isfinite(z).all(), f"augment: {z.dtype} {z.shape}")
+    print(f"[tools] augment -p -1 (built-in phase vocoder + kaiser_fast "
+          f"resample, host only) on one {TOOLS_SECONDS} s pair: {wall:.3f} s "
+          f"wall", flush=True)
+
+    ext = ".jpg" if importlib.util.find_spec("PIL") else ".png"
+    cwd = os.getcwd()
+    os.makedirs(os.path.join(root, "spec_debug"))
+    os.chdir(os.path.join(root, "spec_debug"))
+    try:
+        t0 = time.perf_counter()
+        spec_debug.main([os.path.join(mix, "song0.wav"),
+                         os.path.join(inst, "song0.wav")])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    n_frames = 1 + lengths[0] // 1024
+    for s in "Xyv":
+        img = read_image(os.path.join(root, "spec_debug", f"test_{s}{ext}"))
+        check(img.shape == (1025, n_frames, 3),
+              f"spec_debug test_{s}{ext}: {img.shape}")
+        w, sr = audio.read_wav(os.path.join(root, "spec_debug",
+                                            f"test_{s}.wav"))
+        check(sr == SR and w.shape == (2, lengths[0] // 1024 * 1024),
+              f"spec_debug test_{s}.wav: {w.shape}")
+    print(f"[tools] spec_debug (host): {wall:.3f} s wall, test_{{X,y,v}}"
+          f"{ext} of (1025, {n_frames}, 3) and three WAVs", flush=True)
+
+    t0 = time.perf_counter()
+    dataset_images.main([mix, inst, os.path.join(root, "images")])
+    wall = time.perf_counter() - t0
+    for i, n in enumerate(lengths):
+        img = read_image(os.path.join(root, "images", f"song{i}_Vocal{ext}"))
+        check(img.shape == (1025, 1 + n // 1024, 3),
+              f"dataset_images song{i}: {img.shape}")
+    print(f"[tools] dataset_images (host, spectrogram cache made in the "
+          f"run): {wall:.3f} s wall, {TOOLS_SONGS} images{ext}", flush=True)
+
+    logs = sorted(glob.glob(os.path.join(tmp, "train", "loss_*.json")),
+                  key=os.path.getmtime)
+    png = os.path.join(root, "loss.png")
+    said = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(said):
+        try:
+            plot_log.main([logs[0], png])
+        except SystemExit as e:
+            code = e.code
+    lines = said.getvalue().splitlines()
+    check(lines and lines[0].startswith("epochs: ")
+          and " best val: " in lines[0], f"plot_log: {lines}")
+    if code == 0:
+        with open(png, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "plot_log: no PNG")
+        outcome = f"{os.path.getsize(png)} bytes of PNG written"
+    else:
+        check("matplotlib" in str(code) and not os.path.exists(png),
+              f"plot_log: exit {code!r}")
+        outcome = f"no matplotlib here: exits with {code!r}"
+    print(f"[tools] plot_log {os.path.basename(logs[0])}: {lines[0]!r}; "
+          f"{outcome}", flush=True)
+    print(f"[tools] phase: {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
 
 
 def phase_profile(ckpt, seed):
@@ -1982,6 +2372,8 @@ def main():
         mark("export")
         train_launches = phase_train(tmp, args.seed, counters, smi)
         mark("train")
+        phase_tools(tmp, ckpt, args.seed, counters, smi)
+        mark("tools")
         if args.profile:
             phase_profile(ckpt, args.seed)
             mark("profile")

@@ -110,8 +110,6 @@ def test_cli_trains_writes_its_files_and_resumes(dataset_dir, tmp_path,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--is_complex"], "A9"),
-    (["--wave_loss", "sdr"], "A9"),
     (["--remat"], "A9"),
     (["--device_data_cache"], "A9"),
     (["--precision", "bfloat16"], "A9"),

@@ -83,21 +83,40 @@ def float64_mode():
 TINY = (64, 32, 4, 8)  # JAX's tiny training configuration (test_train.py)
 
 
-def tiny_weights(seed):
-    """JAX's init of the tiny CascadedNet (jitted, float32) with BN
-    perturbed, as numpy."""
+def tiny_weights(seed, is_complex=False):
+    """JAX's init of the tiny CascadedNet (jitted, float32; complex-mask
+    with `is_complex`) with BN perturbed, as numpy."""
     import jax
 
     from vocal_remover_tpu.models.cascaded import CascadedNet as JCascadedNet
 
-    jmod = JCascadedNet(*TINY)
+    jmod = JCascadedNet(*TINY, is_complex=is_complex)
     return perturb_bn(jax.jit(jmod.init)(jax.random.PRNGKey(seed)),
                       np.random.default_rng(seed))
 
 
-def check_grads_match_jax(weights, aux_lambda):
+def tiny_batch(is_complex=False):
+    """A (2, C, 33, 160) float64 batch (X, y) for the tiny net: magnitudes,
+    y = X times a uniform [0, 1) gain; with `is_complex`, [real;
+    imaginary] channel stacks of random complex spectrograms, y = X times
+    a complex gain of modulus below 1."""
+    rng = np.random.default_rng(12)
+    if not is_complex:
+        X = np.abs(rng.standard_normal((2, 2, 33, 160)))
+        return X, X * rng.uniform(0.0, 1.0, X.shape)
+    shape = (2, 2, 33, 160)
+    Xc = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    yc = Xc * rng.uniform(0.0, 1.0, shape) * np.exp(
+        1j * rng.uniform(-0.5, 0.5, shape))
+    return (np.concatenate([Xc.real, Xc.imag], axis=1),
+            np.concatenate([yc.real, yc.imag], axis=1))
+
+
+def check_grads_match_jax(weights, aux_lambda, is_complex=False,
+                          wave_loss=None):
     """The port's `Trainer.compute_grads` against JAX's
-    `Trainer(dropout=False).compute_grads` on the tiny net, in float64
+    `Trainer(dropout=False).compute_grads` on the tiny net (complex-mask
+    with `is_complex`, the wave term with `wave_loss`), in float64
     (run under the float64_mode fixture): the loss within 1e-10
     relative; each gradient leaf within 1e-9 of its largest |g|. Leaves
     whose gradient is zero in exact arithmetic (the dense head's bias
@@ -117,19 +136,20 @@ def check_grads_match_jax(weights, aux_lambda):
     from vocal_remover_tpu_torch.train.step import Trainer
 
     v = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), weights)
-    rng = np.random.default_rng(12)
-    X = np.abs(rng.standard_normal((2, 2, 33, 160)))
-    y = X * rng.uniform(0.0, 1.0, X.shape)
+    X, y = tiny_batch(is_complex)
 
-    jt = JTrainer(JCascadedNet(*TINY), v, learning_rate=1e-3, dropout=False,
-                  aux_lambda=aux_lambda)
+    jt = JTrainer(JCascadedNet(*TINY, is_complex=is_complex), v,
+                  learning_rate=1e-3, dropout=False, aux_lambda=aux_lambda,
+                  wave_loss=wave_loss)
     jloss, jgrads = jt.compute_grads(X, y)
     jflat = convert._flatten(jgrads)
 
-    model = convert.from_jax_variables(CascadedNet(*TINY), v).double()
+    model = convert.from_jax_variables(
+        CascadedNet(*TINY, is_complex=is_complex), v).double()
     before = {k: b.clone() for k, b in model.state_dict().items()}
     trainer = Trainer(model, learning_rate=1e-3, dropout=False,
-                      aux_lambda=aux_lambda, device="cpu")
+                      aux_lambda=aux_lambda, wave_loss=wave_loss,
+                      device="cpu")
     loss, grads = trainer.compute_grads(X, y)
     for k, b in model.state_dict().items():
         assert torch.equal(b, before[k]), k

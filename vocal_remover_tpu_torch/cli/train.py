@@ -5,8 +5,10 @@
 Flag-compatible with vocal_remover_tpu/cli/train.py (reference
 train.py:137-294): the dataset's `mixtures/` and `instruments/` pairs
 are split, cached as spectrograms and cut into validation patches; the
-model is CascadedNet(n_fft, hop_length, 32, 128); each epoch trains,
-validates, steps the plateau scheduler, writes
+model is CascadedNet(n_fft, hop_length, 32, 128), with `--is_complex` a
+complex-mask one (re/im channel pairs; `--wave_loss` adds a wave-domain
+SDR term through the device iSTFT); each epoch trains, validates, steps
+the plateau scheduler, writes
 `<output_dir>/model_iter{epoch}.vrt.npz` on a new best validation loss
 and the full training state `<output_dir>/train_state.pt` (with its
 `.meta.json`), which `--resume` continues. `loss_{time}.json`,
@@ -17,11 +19,10 @@ Runs on card `--gpu` (default 0); `--gpu -1` runs on the CPU. Without a
 card and without `--gpu -1` it raises rather than fall back to the CPU.
 Batches are staged in float32 under `--precision highest` and in
 bfloat16 under `default` (TF32 on the card). Refused, each naming its
-ROADMAP.md item: `--is_complex`, `--wave_loss`, `--remat`,
-`--device_data_cache`, `--precision bfloat16`, `--transfer_dtype int8`
-(A9) and `--data_parallel` other than 1 (A10). Unlike the JAX package's
-root `train.py`, which logs a failure and exits 0, a failed run logs the
-traceback and exits non-zero.
+ROADMAP.md item: `--remat`, `--device_data_cache`, `--precision
+bfloat16`, `--transfer_dtype int8` (A9) and `--data_parallel` other than
+1 (A10). Unlike the JAX package's root `train.py`, which logs a failure
+and exits 0, a failed run logs the traceback and exits non-zero.
 """
 
 from __future__ import annotations
@@ -72,13 +73,20 @@ def build_parser():
                    help='deep-supervision weight for the aux mask head '
                         '(0 = reference behaviour)')
     p.add_argument('--is_complex', action='store_true',
-                   help='complex-mask training: not ported yet '
-                        '(ROADMAP.md A9)')
+                   help='complex-mask training: re/im channel pairs, '
+                        'tanh-bounded complex masks (the reference '
+                        'sketches this dormant at nets.py:83-84, '
+                        'train.py:85-86), end to end through Separator')
     p.add_argument('--wave_loss', type=str, default=None,
                    choices=['sdr', 'weighted_sdr'],
-                   help='wave-domain SDR loss: not ported yet '
-                        '(ROADMAP.md A9)')
-    p.add_argument('--wave_loss_weight', type=float, default=0.01)
+                   help='add a wave-domain SDR loss through the device '
+                        'iSTFT (the reference defines these but leaves '
+                        'them commented out, train.py:46-65, 83-88). '
+                        'Requires --is_complex: magnitude batches carry '
+                        'no phase to invert')
+    p.add_argument('--wave_loss_weight', type=float, default=0.01,
+                   help='weight of the wave-domain loss term (the '
+                        "reference's commented-out factor, train.py:84)")
     p.add_argument('--debug', action='store_true')
     p.add_argument('--data_parallel', type=int, default=1,
                    help='cards in the data-parallel group: only 1 is '
@@ -109,8 +117,6 @@ def build_parser():
 
 def _refuse_unported(args):
     refused = [
-        (args.is_complex, "--is_complex (complex-mask training)"),
-        (args.wave_loss is not None, "--wave_loss"),
         (args.remat, "--remat"),
         (args.device_data_cache, "--device_data_cache"),
         (args.precision == 'bfloat16', "--precision bfloat16 training"),
@@ -212,6 +218,7 @@ def _run(args, timestamp, logger):
         args.n_fft, args.sr, args.reduction_level)
 
     model = CascadedNet(args.n_fft, args.hop_length, 32, 128,
+                        is_complex=args.is_complex,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.pretrained_model is not None:
         convert.load_checkpoint(args.pretrained_model, model)
@@ -230,6 +237,8 @@ def _run(args, timestamp, logger):
         transfer_dtype=(torch.bfloat16 if transfer_dtype == 'bfloat16'
                         else None),
         aux_lambda=args.aux_lambda,
+        wave_loss=args.wave_loss,
+        wave_loss_weight=args.wave_loss_weight,
         device=device,
     )
     scheduler = ReduceLROnPlateau(
@@ -254,6 +263,7 @@ def _run(args, timestamp, logger):
         mixup_rate=args.mixup_rate,
         mixup_alpha=args.mixup_alpha,
         seed=args.seed,
+        is_complex=args.is_complex,
         mono_rate=args.mono_rate,
     )
     train_loader = Loader(
@@ -273,7 +283,8 @@ def _run(args, timestamp, logger):
         offset=model.offset,
     )
     val_loader = Loader(
-        dataset.ValidationSet(patch_list=patch_list),
+        dataset.ValidationSet(patch_list=patch_list,
+                              is_complex=args.is_complex),
         batchsize=args.val_batchsize,
         shuffle=False,
         num_workers=args.num_workers,

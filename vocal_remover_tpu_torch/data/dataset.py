@@ -6,8 +6,9 @@ per-song normalization, the augmentation set (vocal-reduction, channel
 swap, instrumental-as-mixture, mixup) with the same
 probabilities/distributions, reorganized as plain-Python
 samplers (no torch DataLoader): a `Loader` (loader.py) drives them with
-worker threads and feeds the training step (train/step.py). Magnitude
-items only: complex-mask training is ROADMAP.md A9.
+worker threads and feeds the training step (train/step.py). Items are
+magnitudes, or for complex-mask training (`is_complex`) the real and
+imaginary parts stacked as channels.
 
 Randomness is derived per item: every `__getitem__(idx)` builds its own
 `np.random.Generator` seeded from (seed, epoch, idx). This makes the
@@ -27,22 +28,33 @@ from vocal_remover_tpu_torch.ops.windowing import make_padding
 __all__ = ["TrainingSet", "ValidationSet", "make_validation_set"]
 
 
+def _item(X, y, is_complex):
+    """Complex (2, F, T) crops -> float32 magnitudes, or with
+    `is_complex` (4, F, T) float32 [real; imaginary] channel stacks."""
+    if is_complex:
+        return (np.concatenate([X.real, X.imag]).astype(np.float32),
+                np.concatenate([y.real, y.imag]).astype(np.float32))
+    return np.abs(X).astype(np.float32), np.abs(y).astype(np.float32)
+
+
 class TrainingSet:
     """Map-style dataset over `training_set * patches` entries.
 
     Items are (X_mag, y_mag) float32 arrays of shape (2, F, cropsize)
-    (reference lib/dataset.py:104-119).
+    (reference lib/dataset.py:104-119); with `is_complex`, (4, F,
+    cropsize) float32 re/im channel stacks (real parts first).
     """
 
     def __init__(self, training_set, cropsize, reduction_rate,
                  reduction_weight, mixup_rate, mixup_alpha, seed=0,
-                 mono_rate=0.0):
+                 is_complex=False, mono_rate=0.0):
         self.training_set = training_set
         self.cropsize = cropsize
         self.reduction_rate = reduction_rate
         self.reduction_weight = reduction_weight
         self.mixup_rate = mixup_rate
         self.mixup_alpha = mixup_alpha
+        self.is_complex = is_complex
         # mono-mix augmentation: dormant in the reference (commented out
         # at lib/dataset.py:81-83); carried here as a real option
         self.mono_rate = mono_rate
@@ -152,7 +164,8 @@ class TrainingSet:
     def __getitem__(self, idx):
         rng = self._item_rng(idx)
         if (
-            self.reduction_rate == 0
+            not self.is_complex
+            and self.reduction_rate == 0
             and self.mixup_rate == 0
             and self.mono_rate == 0
         ):
@@ -165,23 +178,23 @@ class TrainingSet:
         X, y = self.do_aug(X, y, rng)
         if rng.uniform() < self.mixup_rate:
             X, y = self.do_mixup(X, y, rng)
-        return np.abs(X).astype(np.float32), np.abs(y).astype(np.float32)
+        return _item(X, y, self.is_complex)
 
 
 class ValidationSet:
     """Fixed validation windows persisted as .npz patches
     (reference lib/dataset.py:123-141)."""
 
-    def __init__(self, patch_list):
+    def __init__(self, patch_list, is_complex=False):
         self.patch_list = patch_list
+        self.is_complex = is_complex
 
     def __len__(self):
         return len(self.patch_list)
 
     def __getitem__(self, idx):
         data = np.load(self.patch_list[idx])
-        X, y = data["X"], data["y"]
-        return np.abs(X).astype(np.float32), np.abs(y).astype(np.float32)
+        return _item(data["X"], data["y"], self.is_complex)
 
 
 def make_validation_set(filelist, cropsize, sr, hop_length, n_fft, offset,

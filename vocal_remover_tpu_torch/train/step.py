@@ -24,8 +24,16 @@ validation on the offset-trimmed masked spectrogram.
     pinned memory on a side stream, in `transfer_dtype` (None: as the
     loader gives them), and cast up to float32 (or wider) on the device.
 
-Not ported (ROADMAP.md A9): the complex-mask objective and the wave
-loss, `remat`, the device-resident dataset and int8 staging.
+  * A complex-mask model (`is_complex`) takes (N, 4, F, T) batches, the
+    real parts of both channels then the imaginary parts, and its
+    objective is L1 on the magnitudes of mask (*) X (complex product)
+    against |y|; `wave_loss` ('sdr' | 'weighted_sdr', complex models
+    only) adds `wave_loss_weight` times an SDR loss between the iSTFTs
+    of y and mask (*) X (losses.py), the gradient flowing through the
+    device iSTFT.
+
+Not ported (ROADMAP.md A9): `remat`, the device-resident dataset and
+int8 staging.
 """
 
 from __future__ import annotations
@@ -42,10 +50,27 @@ from vocal_remover_tpu_torch.train.prefetch import device_prefetch
 # batches staged ahead of the step by the staging thread
 PREFETCH = 2
 
+
+def _complex_product(mask, X):
+    """mask (*) X on re/im channel stacks ([:, :2] real, [:, 2:]
+    imaginary) -> (real, imaginary)."""
+    mr, mi = mask[:, :2], mask[:, 2:]
+    xr, xi = X[:, :2], X[:, 2:]
+    return mr * xr - mi * xi, mr * xi + mi * xr
+
+
+def _complex_magnitudes(mask, X, y):
+    """(|mask (*) X|, |y|) of re/im channel stacks, 1e-12 under each
+    root as in the JAX package."""
+    pr, pi = _complex_product(mask, X)
+    return (torch.sqrt(pr * pr + pi * pi + 1e-12),
+            torch.sqrt(y[:, :2] ** 2 + y[:, 2:] ** 2 + 1e-12))
+
+
 class Trainer:
     def __init__(self, model, learning_rate, accumulation_steps=1, seed=0,
                  dropout=True, transfer_dtype=None, aux_lambda=0.0,
-                 device=None):
+                 wave_loss=None, wave_loss_weight=0.01, device=None):
         """Trains `model` (a CascadedNet) in place, on `device` (None:
         the card; "cpu" when asked). A model with the serving transforms
         applied (models/serving.py: folded BatchNorm, bf16 weights,
@@ -55,9 +80,12 @@ class Trainer:
                 "this model has the serving transforms applied (folded "
                 "BatchNorm, cast or packed weights: models/serving.py); "
                 "train the model as loaded, before serving_variables")
-        if model.is_complex:
-            raise ValueError("complex-mask training is not ported to the "
-                             "GPU package yet (ROADMAP.md A9)")
+        if wave_loss not in (None, "sdr", "weighted_sdr"):
+            raise ValueError(f"unknown wave_loss {wave_loss!r}")
+        if wave_loss is not None and not model.is_complex:
+            raise ValueError(
+                "wave_loss requires a complex-mask model (is_complex): "
+                "magnitude batches have no phase to invert to waves")
         if accumulation_steps < 1:
             raise ValueError(f"accumulation_steps {accumulation_steps} < 1")
         self.device = resolve_device(device)
@@ -67,6 +95,8 @@ class Trainer:
         self.dropout = dropout
         self.transfer_dtype = transfer_dtype
         self.aux_lambda = float(aux_lambda)
+        self.wave_loss = wave_loss
+        self.wave_loss_weight = float(wave_loss_weight)
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
             eps=1e-8)
@@ -98,13 +128,38 @@ class Trainer:
         float64 (the parity tests) stays."""
         return a.to(torch.promote_types(a.dtype, torch.float32))
 
+    def _mask_loss(self, mask, X, y):
+        if not self.model.is_complex:
+            return losses.mask_l1_loss(mask, X, y)
+        return losses.l1(*_complex_magnitudes(mask, X, y))
+
+    def _wave_loss_term(self, mask, X, y):
+        """The SDR loss between the iSTFTs of y and mask (*) X (with
+        'weighted_sdr' also of the noises X - y and X - mask (*) X)."""
+        pr, pi = _complex_product(mask, X)
+        n_fft, hop = self.model.n_fft, self.model.hop_length
+        y_wave = losses.to_wave(y[:, :2], y[:, 2:], n_fft, hop)
+        p_wave = losses.to_wave(pr, pi, n_fft, hop)
+        if self.wave_loss == "weighted_sdr":
+            xr, xi = X[:, :2], X[:, 2:]
+            n_wave = losses.to_wave(xr - y[:, :2], xi - y[:, 2:], n_fft, hop)
+            n_pred = losses.to_wave(xr - pr, xi - pi, n_fft, hop)
+            return losses.weighted_sdr_loss(y_wave, p_wave, n_wave, n_pred)
+        return losses.sdr_loss(y_wave, p_wave)
+
     def _loss(self, X, y, generator):
         X, y = self._upcast(X), self._upcast(y)
         if self.aux_lambda > 0:
             mask, aux_mask = self.model(X, aux=True, generator=generator)
-            return (losses.mask_l1_loss(mask, X, y) + self.aux_lambda
-                    * losses.mask_l1_loss(aux_mask, X, y))
-        return losses.mask_l1_loss(self.model(X, generator=generator), X, y)
+            loss = (self._mask_loss(mask, X, y) + self.aux_lambda
+                    * self._mask_loss(aux_mask, X, y))
+        else:
+            mask = self.model(X, generator=generator)
+            loss = self._mask_loss(mask, X, y)
+        if self.wave_loss is not None:
+            loss = loss + self.wave_loss_weight * self._wave_loss_term(
+                mask, X, y)
+        return loss
 
     def _put(self, a):
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -209,15 +264,25 @@ class Trainer:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
+    def _predict(self, X, y):
+        """(the offset-trimmed eval prediction, the target it is scored
+        against): `model.predict`, or for a complex model the magnitudes
+        of mask (*) X and |y|."""
+        if not self.model.is_complex:
+            return self.model.predict(X), y
+        pred, y = _complex_magnitudes(self.model(X), X, y)
+        off = self.model.offset
+        return pred[:, :, :, off:-off], y
+
     @torch.no_grad()
     def validate_epoch(self, loader) -> float:
-        """Dataset-mean per-sample L1 of `model.predict` (eval) against
-        the target centre-cropped in time (reference train.py:122-130)."""
+        """Dataset-mean per-sample L1 of the eval prediction (`_predict`)
+        against the target centre-cropped in time (reference
+        train.py:122-130)."""
         self.model.eval()
         sum_loss, n_samples = None, 0
         for Xd, yd, blen in self._staged(loader):
-            X, y = self._upcast(Xd), self._upcast(yd)
-            pred = self.model.predict(X)
+            pred, y = self._predict(self._upcast(Xd), self._upcast(yd))
             t = pred.shape[3]
             s = (y.shape[3] - t) // 2
             loss = losses.l1(pred, y[:, :, :, s:s + t]) * blen
