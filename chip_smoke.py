@@ -71,7 +71,7 @@ Phases (each prints a line; any failure exits non-zero):
      on the card in bfloat16 and highest at crops 256 and 1024 (export
      seconds, file size, load seconds); the recurrence's custom op under
      torch.library.opcheck and against its plain version on the card;
-     the 60 s song through -P model.vrtx, first and warm, in both
+     the 60 s song through -P model.vrtx once, in both
      precisions: 30 recurrence launches a run, stems within 1 LSB of the
      .vrt.npz run at the same precision, walls side by side; the 1024
      entry at batch 24 against the .vrt.npz run (1 LSB); [dir]'s songs
@@ -81,7 +81,7 @@ Phases (each prints a line; any failure exits non-zero):
      against the card's (CROSS_DEVICE_TOL);
   7c. training ([train]): four seeded 30 s stereo songs (instrumental stem
      plus a voice-like partial series) through the training CLI on the
-     card at its full width and defaults (-C 256 -B 4 -p 8 -v 0.25,
+     card at its full width and defaults (-C 256 -B 4 -v 0.25, -p 4,
      highest), two epochs, then a third with --resume: every loss finite,
      the recurrence kernel launched 5 x validation chunks a validation
      and never in the train step (the plain loop under autograd); the
@@ -93,8 +93,24 @@ Phases (each prints a line; any failure exits non-zero):
      backward share of the step (alone, and the step's wall with it
      replaced by its forward kernel and zero gradients), validation ms a
      patch, an epoch from the loader with the steps' wait on it, and one
-     profiled epoch (busy share, launches a step, top kernels); then the
-     complex-mask run: cli.train --is_complex --wave_loss sdr, one epoch
+     profiled epoch (busy share, launches a step, top kernels). The rest
+     of training: the state of the first run's last epoch written as the
+     JAX package's train_state.msgpack by the port's writer (seconds,
+     size; read back, parameters equal to the .pt's bit for bit) and
+     cli.train --resume from it for one epoch; cli.train -E 1 with each
+     of --remat, --precision bfloat16, --transfer_dtype int8,
+     --device_data_cache (highest) and --device_data_cache --precision
+     default (finite losses, the recurrence kernel 5 x validation chunks
+     and never in the step); remat on the card (float64 compute_grads of
+     CascadedNet(256, 128, 8, 16) with dropout and the aux head, with vs
+     without remat, and every BN buffer and parameter after two steps,
+     GRAD_RTOL); then beside the plain step of the run: the remat step and
+     peak at batch 4 and at batch BIG_BATCH, the bf16 step, samples/s,
+     peak and one batch's loss gap, int8 staging's bytes a step, loader
+     wait and step, and the device-resident dataset in float32 and bf16
+     (resident MB, bytes uploaded a step, loader wait, step, validation
+     ms a patch; the first float32 batch equal to the host path's bit for
+     bit); then the complex-mask run: cli.train --is_complex --wave_loss sdr, one epoch
      at the same defaults on the same songs (finite losses, the
      recurrence kernel 5 x validation chunks and never in the step), its
      checkpoint through cli.evaluate on the card, compute_grads of the
@@ -139,6 +155,7 @@ import io
 import json
 import os
 import random
+import shutil
 import struct
 import subprocess
 import sys
@@ -1348,7 +1365,7 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
     """The export slice: the flagship checkpoint through the export CLI
     on the card in bf16 and highest at crops 256 and 1024; the
     recurrence op checked on the card; the 60 s song through `-P
-    model.vrtx` (first, warm) against the `.vrt.npz` run at the same
+    model.vrtx` (once) against the `.vrt.npz` run at the same
     precision; the 1024 entry at batch 24; [dir]'s songs through
     --input_dir on the bf16 artifact against [dir]'s `.vrt.npz` stems;
     the card's file loaded on the CPU, and the card's programs moved
@@ -1441,19 +1458,17 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
         path = arts[prec][0]
         w0, _, st0, _, ref = serve(f"npz {prec}", ckpt, song,
                                    ["--precision", prec], chunks)
-        for run in ("first", "warm"):
-            # no --precision: the artifact runs in its own mode
-            w, launches, st, peak, got = serve(f"vrtx {prec} {run}", path,
-                                               song, [], chunks)
-            d = lsb(got["song"], ref["song"])
-            check(d <= 1, f"export {prec} {run}: stems vs the .vrt.npz run "
-                          f"{d} LSB > 1")
-            print(f"[export] {prec} -P flagship-{prec}.vrtx {run}: {w:.3f} s "
-                  f"wall ({SONG_SECONDS / w:.2f} x real time; stages {st}), "
-                  f".vrt.npz --precision {prec} {w0:.3f} s (stages {st0}); "
-                  f"launches {launches} ({chunks} chunks); vs the .vrt.npz "
-                  f"run max {d} LSB (tol 1); peak device memory {peak:.2f} "
-                  f"GiB", flush=True)
+        # once (a warm repeat was dropped for time: the artifact's load
+        # dominates either run); no --precision: it runs in its own mode
+        w, launches, st, peak, got = serve(f"vrtx {prec}", path, song, [],
+                                           chunks)
+        d = lsb(got["song"], ref["song"])
+        check(d <= 1, f"export {prec}: stems vs the .vrt.npz run {d} LSB > 1")
+        print(f"[export] {prec} -P flagship-{prec}.vrtx: {w:.3f} s wall "
+              f"({SONG_SECONDS / w:.2f} x real time; stages {st}), .vrt.npz "
+              f"--precision {prec} {w0:.3f} s (stages {st0}); launches "
+              f"{launches} ({chunks} chunks); vs the .vrt.npz run max {d} LSB "
+              f"(tol 1); peak device memory {peak:.2f} GiB", flush=True)
 
     wide = ["--cropsize", "1024", "--batchsize", "24"]
     n_wide = -(-patch_count(mix.shape[-1], 1024) // 24)
@@ -1504,11 +1519,26 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
 TRAIN_SONGS = 4  # 3 train, 1 validation at -v 0.25
 TRAIN_NFFT, TRAIN_HOP = 2048, 1024  # the training CLI's defaults
 TRAIN_SECONDS = 30
-TRAIN_ARGS = ["-C", "256", "-B", "4", "-p", "8", "-v", "0.25"]
+TRAIN_PATCHES = 4  # -p: 12 items, 3 steps an epoch
+TRAIN_ARGS = ["-C", "256", "-B", "4", "-p", str(TRAIN_PATCHES), "-v",
+              "0.25"]
 TRAIN_EPOCHS = 2  # then one more with --resume
 TRAIN_BATCH = 4
 VAL_BATCH = 4  # the CLI's default --val_batchsize
-STEP_REPEAT = 12  # warm steps on the clock
+STEP_REPEAT = 6  # warm steps on the clock
+# the CLI runs of this slice's flags, one epoch each at TRAIN_ARGS:
+# (label, flags, the precision the run leaves the process in)
+FLAG_RUNS = (
+    ("remat", ["--remat"]),
+    ("bf16", ["--precision", "bfloat16"]),
+    ("int8", ["--transfer_dtype", "int8"]),
+    ("device_cache", ["--device_data_cache"]),
+    ("device_cache_default", ["--device_data_cache", "--precision",
+                              "default"]),
+)
+# remat's own configuration: the plain step's peak passes half the card
+BIG_BATCH = 8
+BIG_STEPS = 3
 # one batch's train-mode loss at full width, card vs CPU, float32
 TRAIN_LOSS_RTOL = 1e-4
 # compute_grads of the reduced model, card vs CPU, float64: each gradient
@@ -1722,11 +1752,12 @@ def train_complex(root, data, seed, counters, smi, mag_step_ms, mag_peak):
     tset = cache.make_training_set(train_files, SR, TRAIN_HOP, TRAIN_NFFT)
     ramp = train_cli.reduction_weight_ramp(TRAIN_NFFT, SR, 0.2)
     batches = list(Loader(dataset.TrainingSet(
-        tset * 8, 256, 0.0, ramp, 0.0, 1.0, seed=cli_seed, is_complex=True),
+        tset * TRAIN_PATCHES, 256, 0.0, ramp, 0.0, 1.0, seed=cli_seed,
+        is_complex=True),
         TRAIN_BATCH, shuffle=True, seed=cli_seed))
     check(batches[0][0].shape == (TRAIN_BATCH, 4, 1025, 256),
           f"complex batch {batches[0][0].shape}")
-    steps = (batches * 2)[:STEP_REPEAT]
+    steps = (batches * STEP_REPEAT)[:STEP_REPEAT]
     with config.precision("highest"):
         for wave_loss in (None, "sdr"):
             model = CascadedNet(TRAIN_NFFT, TRAIN_HOP, 32, 128,
@@ -1754,6 +1785,299 @@ def train_complex(root, data, seed, counters, smi, mag_step_ms, mag_peak):
             torch.cuda.empty_cache()
 
 
+def resume_from_msgpack(root, argv, pt_first, out, counters, chunks, smi):
+    """The state of [train]'s first run (epoch TRAIN_EPOCHS - 1) written
+    in the JAX package's flax layout by the port's writer, read back
+    (seconds, size; parameters equal to the .pt's bit for bit), then
+    cli.train --resume from it for one epoch."""
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.train import checkpoint
+    from vocal_remover_tpu_torch.train.plateau import ReduceLROnPlateau
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    def trainer():
+        return Trainer(CascadedNet(TRAIN_NFFT, TRAIN_HOP, 32, 128), 1e-3)
+
+    from_pt, sched = trainer(), ReduceLROnPlateau(lr=1e-3)
+    epoch, best = checkpoint.load_train_state(pt_first, from_pt, sched)
+    mp_dir = os.path.join(root, "models_msgpack")
+    shutil.copytree(out, mp_dir)
+    mp = os.path.join(mp_dir, "train_state.msgpack")
+    t0 = time.perf_counter()
+    checkpoint.save_train_state(mp, from_pt, sched, epoch, best)
+    write_s = time.perf_counter() - t0
+    from_mp = trainer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.load_train_state(mp, from_mp, ReduceLROnPlateau(lr=1e-3))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    params = list(from_pt.model.named_parameters())
+    same = all(torch.equal(p, q) for (_, p), q in
+               zip(params, from_mp.model.parameters()))
+    check(len(params) == 368, f"train: {len(params)} parameters")
+    check(same, "train: parameters loaded from the .msgpack differ from the "
+                ".pt's")
+    size = os.path.getsize(mp)
+    del from_pt, from_mp
+    wall, launches, log = run_train_cli(
+        argv + ["--output_dir", mp_dir, "-E", str(epoch + 2), "--resume", mp],
+        counters, root)
+    check(len(log) == 1 and np.isfinite(log).all()
+          and launches["lstm_recurrence"] == 5 * chunks,
+          f"train --resume msgpack: log {log}, launches {launches}")
+    print(f"[train] msgpack: the full-width state of epoch {epoch} written "
+          f"in the JAX package's flax layout {write_s:.3f} s, {size} bytes "
+          f"({size / 2**20:.1f} MiB), read into a Trainer on the card "
+          f"{read_s:.3f} s, its {len(params)} parameters equal to the .pt's "
+          f"bit for bit; cli.train --resume train_state.msgpack, epoch "
+          f"{epoch + 1}: {wall:.3f} s wall, losses {log}, launches "
+          f"{launches}; {smi}", flush=True)
+
+
+def flag_run(root, argv, label, flags, counters, chunks, smi):
+    """cli.train -E 1 with one of this slice's flags on [train]'s songs:
+    finite losses, the recurrence kernel 5 x validation chunks and never
+    in the step."""
+    out = os.path.join(root, f"models_{label}")
+    wall, launches, log = run_train_cli(
+        argv + ["--output_dir", out, "-E", "1"] + flags, counters, root)
+    check(len(log) == 1 and np.isfinite(log).all(),
+          f"train {' '.join(flags)}: loss log {log}")
+    check_launches(f"train {' '.join(flags)}", launches, 5 * chunks)
+    check(glob.glob(os.path.join(out, "model_iter0.vrt.npz")),
+          f"train {' '.join(flags)}: no checkpoint")
+    print(f"[train] cli.train -E 1 {' '.join(TRAIN_ARGS)} {' '.join(flags)}: "
+          f"{wall:.3f} s wall, losses (train, val) {log}, launches "
+          f"{launches} = 5 x {chunks} validation chunks, none in the steps; "
+          f"{smi}", flush=True)
+
+
+def remat_on_card(seed):
+    """SMALL_NET in float64 on the card with dropout and the aux head:
+    compute_grads with remat against without (GRAD_RTOL of each leaf's
+    largest |g|), and every BN buffer and parameter after two train steps
+    (GRAD_RTOL of its largest |value|)."""
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    rng = np.random.default_rng(seed + 5)
+    X = np.abs(rng.standard_normal((2, 2, SMALL_NET[0] // 2 + 1, 256)))
+    y = X * rng.uniform(0.0, 1.0, X.shape)
+    config.set_compute_dtype(torch.float64)
+    try:
+        model = CascadedNet(*SMALL_NET, generator=torch.Generator()
+                            .manual_seed(seed)).double()
+        res = []
+        for remat in (False, True):
+            t = Trainer(copy.deepcopy(model), 1e-3, seed=seed,
+                        aux_lambda=0.1, remat=remat)
+            loss, grads = t.compute_grads(X, y)
+            t.train_epoch([(X, y), (X[::-1].copy(), y[::-1].copy())])
+            res.append((loss, grads, t.model.state_dict()))
+    finally:
+        config.set_compute_dtype(torch.float32)
+    (lp, gp, sp), (lr, gr, sr) = res
+    # leaves that are zero in exact arithmetic (cancellation residue)
+    # against 1e-3 of the largest |g|, as grads_card_vs_cpu
+    scale = max(g.abs().max().item() for g in gp.values())
+    worst_g = max((gr[k] - g).abs().max().item()
+                  / max(g.abs().max().item(), 1e-3 * scale)
+                  for k, g in gp.items())
+    worst_s = max(((sr[k] - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                  .item() for k, b in sp.items() if b.is_floating_point())
+    rel = abs(lr - lp) / abs(lp)
+    check(max(rel, worst_g, worst_s) <= GRAD_RTOL,
+          f"train: remat on the card: loss {rel:.3g}, worst gradient leaf "
+          f"{worst_g:.3g}, worst buffer / parameter {worst_s:.3g} "
+          f"(tol {GRAD_RTOL})")
+    print(f"[train] remat on the card, CascadedNet{SMALL_NET} float64, "
+          f"dropout on, aux_lambda 0.1: compute_grads with vs without loss "
+          f"{rel:.3g} relative, worst of {len(gp)} gradient leaves "
+          f"{worst_g:.3g}; after two steps worst BN buffer / parameter "
+          f"{worst_s:.3g} of its max (tol {GRAD_RTOL})", flush=True)
+
+
+def timed_steps(trainer, batches, warm=2, source=None):
+    """(ms a step, peak GiB) of `batches` after `warm` warm-up steps (an
+    index loader's batches when `source` is a DeviceTrainingSource)."""
+    run = (trainer.train_epoch if source is None
+           else lambda b: trainer.train_epoch_device(source, b))
+    run(batches[:warm])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = run(batches)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    check(np.isfinite(loss), f"train: loss {loss}")
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_modes(model, batches, patches, loader, tset, ramp, cli_seed,
+                counters, smi, plain, f32_epoch):
+    """The numbers of this slice's modes at the CLI's defaults, each
+    beside the plain float32 step of this run (`plain` = (ms, peak
+    GiB), `f32_epoch` = (wall s, loader wait s) of an epoch from the
+    loader): remat, also at batch BIG_BATCH; bf16 training (step,
+    samples/s, peak, the loss gap on one batch); int8 staging (bytes a
+    step, loader wait, step); the device-resident dataset in float32
+    and bf16 (resident MB, bytes a step, loader wait, step, validation
+    ms a patch; the first batch against the host path's)."""
+    from vocal_remover_tpu_torch.data import device_cache
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.train import losses
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    step_ms, peak = plain
+    steps = (batches * STEP_REPEAT)[:STEP_REPEAT]
+
+    def fresh(**kw):
+        return Trainer(copy.deepcopy(model), 1e-3, seed=cli_seed, **kw)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with config.precision("highest"):
+        ms, pk = timed_steps(fresh(remat=True), steps)
+        # what the forward leaves allocated for the backward (activations
+        # and the stage inputs remat keeps), without and with remat
+        held = {}
+        for remat in (False, True):
+            t = fresh(remat=remat)
+            Xd, yd, _, _ = t._stage(batches[0])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            loss = t._loss(Xd, yd, t._generator())
+            torch.cuda.synchronize()
+            held[remat] = (torch.cuda.memory_allocated() - base) / 2**30
+            del t, loss, Xd, yd
+            free()
+    free()
+    print(f"[train] warm step --remat, batch {TRAIN_BATCH} crop 256 highest: "
+          f"{ms:.2f} ms ({len(steps)} steps), peak {pk:.2f} GiB; plain in "
+          f"this run {step_ms:.2f} ms, peak {peak:.2f} GiB ({ms / step_ms:.3f}"
+          f"x time, {pk / peak:.3f}x peak); held for the backward after the "
+          f"forward: plain {held[False]:.3f} GiB, remat {held[True]:.3f} GiB; "
+          f"{smi}", flush=True)
+
+    pairs = batches * 2
+    big = [tuple(np.concatenate(p) for p in zip(a, b))
+           for a, b in zip(pairs[0::2], pairs[1::2])][:BIG_STEPS]
+    card = torch.cuda.get_device_properties(0).total_memory / 2**30
+    row = {}
+    for remat in (False, True):
+        try:
+            with config.precision("highest"):
+                row[remat] = timed_steps(fresh(remat=remat), big, warm=1)
+        except torch.cuda.OutOfMemoryError:
+            row[remat] = None
+        free()
+    shown = {r: ("out of memory" if v is None else
+                 f"{v[0]:.2f} ms, peak {v[1]:.2f} GiB") for r, v in row.items()}
+    check(row[True] is not None, "train: --remat ran out of memory at batch "
+                                 f"{BIG_BATCH}")
+    print(f"[train] batch {BIG_BATCH} crop 256 highest ({BIG_STEPS} warm "
+          f"steps; the card has {card:.1f} GiB): plain {shown[False]}, "
+          f"--remat {shown[True]}; {smi}", flush=True)
+
+    # bf16 training: the CLI's staging default in bf16 is bfloat16
+    Xc, yc = (torch.from_numpy(a).cuda() for a in batches[0])
+    gap = {}
+    for prec in ("highest", "bfloat16"):
+        with config.precision(prec), torch.no_grad():
+            m = copy.deepcopy(model).cuda().train()
+            gap[prec] = float(losses.mask_l1_loss(m(Xc), Xc, yc))
+        del m
+    rel = abs(gap["bfloat16"] - gap["highest"]) / gap["highest"]
+    with config.precision("bfloat16"):
+        ms, pk = timed_steps(fresh(transfer_dtype=torch.bfloat16), steps)
+    free()
+    print(f"[train] warm step --precision bfloat16, batch {TRAIN_BATCH} crop "
+          f"256: {ms:.2f} ms ({len(steps)} steps), "
+          f"{1e3 * TRAIN_BATCH / ms:.2f} samples/s, peak {pk:.2f} GiB; "
+          f"highest in this run {step_ms:.2f} ms, "
+          f"{1e3 * TRAIN_BATCH / step_ms:.2f} samples/s, peak {peak:.2f} "
+          f"GiB; one batch's train-mode loss bf16 {gap['bfloat16']:.8f} vs "
+          f"highest {gap['highest']:.8f}: {rel:.3g} relative; {smi}",
+          flush=True)
+    del Xc, yc
+
+    # int8 staging, an epoch from the loader
+    with config.precision("highest"):
+        t = fresh(transfer_dtype="int8")
+        t.train_epoch(batches[:2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_epoch(loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    X = batches[0][0]
+    f32_bytes, q_bytes = 2 * X.nbytes, 2 * (X.size + 4)
+    print(f"[train] --transfer_dtype int8, one epoch from the loader "
+          f"({len(loader)} steps): {wall:.3f} s, "
+          f"{1e3 * wall / len(loader):.2f} ms a step, the steps waited "
+          f"{t.loader_wait_s:.3f} s ({100 * t.loader_wait_s / wall:.1f}%); "
+          f"staged {q_bytes} bytes a step (X and y: uint8 + a float32 scale) "
+          f"against {f32_bytes} in float32 ({f32_bytes / q_bytes:.2f}x "
+          f"fewer); float32 staging in this run {f32_epoch[0]:.3f} s, waited "
+          f"{f32_epoch[1]:.3f} s; {smi}", flush=True)
+    del t
+    free()
+
+    # the device-resident dataset, float32 (highest) and bf16 (default)
+    n_val = -(-len(patches) // VAL_BATCH)
+    for prec, dtype in (("highest", torch.float32),
+                        ("default", torch.bfloat16)):
+        src = device_cache.DeviceTrainingSource(
+            tset * TRAIN_PATCHES, 256, reduction_weight=ramp, seed=cli_seed,
+            dtype=dtype)
+        val = device_cache.DeviceValidationSource(patches, dtype=dtype)
+        idx_loader = device_cache.DeviceLoader(src, TRAIN_BATCH, seed=cli_seed)
+        idx = list(idx_loader)
+        if dtype == torch.float32:
+            Xd, yd = src.gather(*idx[0])
+            same = (np.array_equal(Xd.cpu().numpy(), batches[0][0])
+                    and np.array_equal(yd.cpu().numpy(), batches[0][1]))
+            check(same, "train: the device cache's first batch differs from "
+                        "the host path's")
+        with config.precision(prec):
+            t = fresh()
+            t.train_epoch_device(src, idx[:2])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_epoch_device(src, idx_loader)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            wait = t.loader_wait_s
+            t.validate_epoch_device(val, VAL_BATCH)
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.validate_epoch_device(val, VAL_BATCH)
+            torch.cuda.synchronize()
+            val_ms = 1e3 * (time.perf_counter() - t0) / len(val)
+        n_rec = counters["lstm_recurrence"].launches
+        check(n_rec == 5 * n_val, f"train: device validation launched the "
+                                  f"recurrence {n_rec} times, want {5 * n_val}")
+        up = device_cache.pack_indices(*idx[0]).nbytes
+        print(f"[train] --device_data_cache {prec} ({dtype}): resident "
+              f"{src.nbytes / 1e6:.1f} MB training ({len(tset)} songs), "
+              f"{val.nbytes / 1e6:.1f} MB validation ({len(val)} patches); "
+              f"{up} bytes uploaded a step; one epoch ({len(idx)} steps) "
+              f"{wall:.3f} s, {1e3 * wall / len(idx):.2f} ms a step, "
+              f"waited {wait:.3f} s ({100 * wait / wall:.1f}%); validation "
+              f"{val_ms:.2f} ms a patch ({len(val)} patches, recurrence "
+              f"{n_rec} launches a pass)"
+              + (", first batch = the host path's bit for bit"
+                 if dtype == torch.float32 else "") + f"; {smi}", flush=True)
+        del t, src, val
+        free()
+
+
 def phase_train(tmp, seed, counters, smi):
     """The training slice ([train]): a seeded dataset of TRAIN_SONGS
     stereo 44.1 kHz songs through the training CLI on the card at its
@@ -1778,6 +2102,7 @@ def phase_train(tmp, seed, counters, smi):
     from vocal_remover_tpu_torch.utils import audio
 
     torch.cuda.empty_cache()
+    config.set_precision("highest")
     phase_t0 = time.perf_counter()
     root = os.path.join(tmp, "train")
     data = os.path.join(root, "dataset")
@@ -1808,6 +2133,10 @@ def phase_train(tmp, seed, counters, smi):
                              f"(5 band nets x {chunks} validation chunks x "
                              f"{TRAIN_EPOCHS} epochs; none in the train step)")
         first_launches = launches["lstm_recurrence"]
+        # the state of epoch TRAIN_EPOCHS - 1, before --resume replaces it
+        pt_first = os.path.join(root, "first_" + checkpoint.STATE_NAME)
+        for sfx in ("", ".meta.json"):
+            shutil.copy(state + sfx, pt_first + sfx)
         print(f"[train] cli.train -E {TRAIN_EPOCHS} {' '.join(TRAIN_ARGS)} "
               f"on {TRAIN_SONGS} x {TRAIN_SECONDS} s songs (cache built in "
               f"the run): {wall:.3f} s wall, losses (train, val) {log}, "
@@ -1827,8 +2156,12 @@ def phase_train(tmp, seed, counters, smi):
         print(f"[train] cli.train --resume, epoch {TRAIN_EPOCHS}: {wall:.3f} "
               f"s wall, losses {log}, launches {launches}, step counter "
               f"{meta['step_counter']}", flush=True)
+        resume_from_msgpack(root, argv, pt_first, out, counters, chunks, smi)
+        for label, flags in FLAG_RUNS:
+            flag_run(root, argv, label, flags, counters, chunks, smi)
     finally:
         os.chdir(cwd)
+        config.set_precision("highest")
 
     # the best checkpoint separates a 10 s song on the card
     best = max(glob.glob(os.path.join(out, "model_iter*.vrt.npz")),
@@ -1854,6 +2187,7 @@ def phase_train(tmp, seed, counters, smi):
     print(f"[train] compute_grads CascadedNet{SMALL_NET} float64, card vs "
           f"CPU: loss {rel:.3g} relative, worst of {leaves} gradient leaves "
           f"{worst:.3g} of its max |g| (tol {GRAD_RTOL})", flush=True)
+    remat_on_card(seed)
 
     # the CLI's training loader (its seed, split and data; the cache is
     # there) and its validation patches
@@ -1862,8 +2196,8 @@ def phase_train(tmp, seed, counters, smi):
     train_files, _ = pairing.train_val_split(data, "random", 0.25, [])
     tset = cache.make_training_set(train_files, SR, TRAIN_HOP, TRAIN_NFFT)
     ramp = train_cli.reduction_weight_ramp(TRAIN_NFFT, SR, 0.2)
-    loader = Loader(dataset.TrainingSet(tset * 8, 256, 0.0, ramp, 0.0, 1.0,
-                                        seed=cli_seed), TRAIN_BATCH,
+    loader = Loader(dataset.TrainingSet(tset * TRAIN_PATCHES, 256, 0.0, ramp,
+                                        0.0, 1.0, seed=cli_seed), TRAIN_BATCH,
                     shuffle=True, seed=cli_seed)
     batches = list(loader)
     val_batches = list(Loader(dataset.ValidationSet(patches), VAL_BATCH))
@@ -1889,7 +2223,7 @@ def phase_train(tmp, seed, counters, smi):
         trainer.train_epoch(batches[:2])  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        steps = (batches * 2)[:STEP_REPEAT]
+        steps = (batches * STEP_REPEAT)[:STEP_REPEAT]
         t0 = time.perf_counter()
         trainer.train_epoch(steps)
         torch.cuda.synchronize()
@@ -1931,6 +2265,7 @@ def phase_train(tmp, seed, counters, smi):
         trainer.train_epoch(loader)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        f32_epoch = wall, trainer.loader_wait_s
         print(f"[train] one epoch from the loader ({len(loader)} steps, "
               f"4 workers): {wall:.3f} s, the steps waited "
               f"{trainer.loader_wait_s:.3f} s on it "
@@ -1955,7 +2290,12 @@ def phase_train(tmp, seed, counters, smi):
                                 key=lambda kv: -kv[1][0])[:10]:
         print(f"[train]   {t / 1e3:9.2f} ms {n:7d}x  {kname[:100]}",
               flush=True)
-    del prof, kernels, trainer, model
+    del prof, kernels, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_modes(model, batches, patches, loader, tset, ramp, cli_seed,
+                counters, smi, (step_ms, peak), f32_epoch)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     train_complex(root, data, seed, counters, smi, step_ms, peak)
@@ -2080,10 +2420,10 @@ def phase_tools(tmp, ckpt, seed, counters, smi):
           f"(train_pair), {audio_s:.2f} s aligned; flagship {ckpt}",
           flush=True)
 
-    # evaluate: the device pipeline (first, warm), then the spectrogram
-    # path with merge_artifacts and TTA, warm (the same chunks of 8 the
-    # two runs before it launched)
-    for flags, runs in (([], ("first", "warm")),
+    # evaluate: the device pipeline (first; a warm repeat was dropped for
+    # time), then the spectrogram path with merge_artifacts and TTA, warm
+    # (the same chunks of 8 the run before it launched)
+    for flags, runs in (([], ("first",)),
                         (["--postprocess", "--tta"], ("warm",))):
         tta = "--tta" in flags
         chunks = sep_chunks(lengths, EVAL_BATCH, tta)

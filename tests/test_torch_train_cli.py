@@ -1,7 +1,7 @@
 """GPU port, training slice: `python -m vocal_remover_tpu_torch.cli.train`
 on the CPU (`--gpu -1`) on a synthetic 8 kHz dataset: the files it
 writes, its checkpoint read by the JAX package's `convert.load_native`,
-resume against an uninterrupted run, the refused flags, and a failure
+resume against an uninterrupted run, the refused flag, and a failure
 that exits non-zero. The JAX training CLI is not run here: its
 full-width compile on the CPU takes minutes."""
 
@@ -110,10 +110,6 @@ def test_cli_trains_writes_its_files_and_resumes(dataset_dir, tmp_path,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--remat"], "A9"),
-    (["--device_data_cache"], "A9"),
-    (["--precision", "bfloat16"], "A9"),
-    (["--transfer_dtype", "int8"], "A9"),
     (["--data_parallel", "2"], "A10"),
     (["--data_parallel", "0"], "A10"),
 ])

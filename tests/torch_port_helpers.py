@@ -113,10 +113,11 @@ def tiny_batch(is_complex=False):
 
 
 def check_grads_match_jax(weights, aux_lambda, is_complex=False,
-                          wave_loss=None):
+                          wave_loss=None, remat=False):
     """The port's `Trainer.compute_grads` against JAX's
     `Trainer(dropout=False).compute_grads` on the tiny net (complex-mask
-    with `is_complex`, the wave term with `wave_loss`), in float64
+    with `is_complex`, the wave term with `wave_loss`, both recomputing
+    the band nets in the backward pass with `remat`), in float64
     (run under the float64_mode fixture): the loss within 1e-10
     relative; each gradient leaf within 1e-9 of its largest |g|. Leaves
     whose gradient is zero in exact arithmetic (the dense head's bias
@@ -140,7 +141,7 @@ def check_grads_match_jax(weights, aux_lambda, is_complex=False,
 
     jt = JTrainer(JCascadedNet(*TINY, is_complex=is_complex), v,
                   learning_rate=1e-3, dropout=False, aux_lambda=aux_lambda,
-                  wave_loss=wave_loss)
+                  wave_loss=wave_loss, remat=remat)
     jloss, jgrads = jt.compute_grads(X, y)
     jflat = convert._flatten(jgrads)
 
@@ -149,7 +150,7 @@ def check_grads_match_jax(weights, aux_lambda, is_complex=False,
     before = {k: b.clone() for k, b in model.state_dict().items()}
     trainer = Trainer(model, learning_rate=1e-3, dropout=False,
                       aux_lambda=aux_lambda, wave_loss=wave_loss,
-                      device="cpu")
+                      remat=remat, device="cpu")
     loss, grads = trainer.compute_grads(X, y)
     for k, b in model.state_dict().items():
         assert torch.equal(b, before[k]), k

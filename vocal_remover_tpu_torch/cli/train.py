@@ -11,18 +11,22 @@ SDR term through the device iSTFT); each epoch trains, validates, steps
 the plateau scheduler, writes
 `<output_dir>/model_iter{epoch}.vrt.npz` on a new best validation loss
 and the full training state `<output_dir>/train_state.pt` (with its
-`.meta.json`), which `--resume` continues. `loss_{time}.json`,
-`val_{time}.json` and `train_{time}.log` go to the working directory,
-as in the JAX package.
+`.meta.json`), which `--resume` continues; `--resume` also takes the JAX
+package's `train_state.msgpack`. `loss_{time}.json`, `val_{time}.json`
+and `train_{time}.log` go to the working directory, as in the JAX
+package.
 
 Runs on card `--gpu` (default 0); `--gpu -1` runs on the CPU. Without a
 card and without `--gpu -1` it raises rather than fall back to the CPU.
 Batches are staged in float32 under `--precision highest` and in
-bfloat16 under `default` (TF32 on the card). Refused, each naming its
-ROADMAP.md item: `--remat`, `--device_data_cache`, `--precision
-bfloat16`, `--transfer_dtype int8` (A9) and `--data_parallel` other than
-1 (A10). Unlike the JAX package's root `train.py`, which logs a failure
-and exits 0, a failed run logs the traceback and exits non-zero.
+bfloat16 otherwise, or as `--transfer_dtype` says. `--precision
+bfloat16` trains with bf16 activations and float32 parameters,
+`--remat` recomputes the band nets in the backward pass, and
+`--device_data_cache` keeps the dataset on the card (float32 under
+float32 staging, else bf16). `--data_parallel` other than 1 is refused,
+naming ROADMAP.md A10. Unlike the JAX package's root `train.py`, which
+logs a failure and exits 0, a failed run logs the traceback and exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -92,41 +96,45 @@ def build_parser():
                    help='cards in the data-parallel group: only 1 is '
                         'ported (ROADMAP.md A10)')
     p.add_argument('--resume', type=str, default=None,
-                   help='full train-state checkpoint (train_state.pt) to '
-                        'resume from')
+                   help='full train-state checkpoint to resume from: the '
+                        "port's train_state.pt or the JAX package's "
+                        'train_state.msgpack')
     p.add_argument('--precision', type=str, default='highest',
                    choices=['highest', 'default', 'bfloat16'],
-                   help='highest = full float32, no TF32 (parity with '
-                        'the reference); default = float32 activations '
-                        'with TF32 multiplies; bfloat16 training is not '
-                        'ported yet (ROADMAP.md A9)')
+                   help='highest = f32-faithful (parity with the '
+                        'reference); default = TF32 multiplies, f32 '
+                        'activations; bfloat16 = bf16 activations '
+                        'end-to-end (mixed-precision training, float32 '
+                        'parameters)')
     p.add_argument('--transfer_dtype', type=str, default=None,
                    choices=['float32', 'bfloat16', 'int8'],
-                   help='dtype of the host -> card batch staging (default: '
-                        'float32 under --precision highest, bfloat16 '
-                        'otherwise); int8 is not ported yet (ROADMAP.md A9)')
+                   help='dtype for host->card batch staging (bf16 '
+                        'halves link traffic; int8 quarters it via '
+                        'per-batch linear quantization — a throughput/'
+                        'quality trade, magnitudes only; loss is '
+                        'computed in f32 after an on-card dequant). '
+                        'Default: float32 under --precision highest '
+                        '(f32-faithful mode must not truncate inputs), '
+                        'bfloat16 otherwise.')
     p.add_argument('--remat', action='store_true',
-                   help='recompute band-net stages in the backward pass: '
-                        'not ported yet (ROADMAP.md A9)')
+                   help='recompute band-net stages in the backward '
+                        'pass (torch.utils.checkpoint): less activation '
+                        'memory for an extra forward of the band nets; '
+                        'use for batch/cropsize configs that run out of '
+                        'memory')
     p.add_argument('--device_data_cache', action='store_true',
-                   help='card-resident dataset: not ported yet '
-                        '(ROADMAP.md A9)')
+                   help='keep the whole dataset resident in card memory '
+                        '(bf16 magnitudes, float32 under float32 '
+                        'staging) and make crops + augmentation on the '
+                        'card: a few bytes host->card per step instead '
+                        'of megabytes. Needs the dataset to fit on the '
+                        'card; magnitude path only (no --is_complex / '
+                        'mixup / mono).')
     p.add_argument('--output_dir', type=str, default='models')
     return p
 
 
 def _refuse_unported(args):
-    refused = [
-        (args.remat, "--remat"),
-        (args.device_data_cache, "--device_data_cache"),
-        (args.precision == 'bfloat16', "--precision bfloat16 training"),
-        (args.transfer_dtype == 'int8', "--transfer_dtype int8"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise SystemExit(f"{what} is not ported to the GPU package yet: "
-                             "it comes with the rest of training "
-                             "(ROADMAP.md A9)")
     if args.data_parallel != 1:
         raise SystemExit("--data_parallel is not ported to the GPU package "
                          "yet: it comes with multi-card training "
@@ -175,6 +183,11 @@ def _run(args, timestamp, logger):
 
     from vocal_remover_tpu_torch import resolve_device
     from vocal_remover_tpu_torch.data import cache, dataset, pairing
+    from vocal_remover_tpu_torch.data.device_cache import (
+        DeviceLoader,
+        DeviceTrainingSource,
+        DeviceValidationSource,
+    )
     from vocal_remover_tpu_torch.data.loader import Loader
     from vocal_remover_tpu_torch.models import convert
     from vocal_remover_tpu_torch.models.cascaded import CascadedNet
@@ -234,9 +247,11 @@ def _run(args, timestamp, logger):
         learning_rate=args.learning_rate,
         accumulation_steps=args.accumulation_steps,
         seed=args.seed,
-        transfer_dtype=(torch.bfloat16 if transfer_dtype == 'bfloat16'
+        transfer_dtype=('int8' if transfer_dtype == 'int8'
+                        else torch.bfloat16 if transfer_dtype == 'bfloat16'
                         else None),
         aux_lambda=args.aux_lambda,
+        remat=args.remat,
         wave_loss=args.wave_loss,
         wave_loss_weight=args.wave_loss_weight,
         device=device,
@@ -255,24 +270,49 @@ def _run(args, timestamp, logger):
         hop_length=args.hop_length,
         n_fft=args.n_fft,
     )
-    train_dataset = dataset.TrainingSet(
-        training_set * args.patches,
-        cropsize=args.cropsize,
-        reduction_rate=args.reduction_rate,
-        reduction_weight=reduction_weight,
-        mixup_rate=args.mixup_rate,
-        mixup_alpha=args.mixup_alpha,
-        seed=args.seed,
-        is_complex=args.is_complex,
-        mono_rate=args.mono_rate,
-    )
-    train_loader = Loader(
-        train_dataset,
-        batchsize=args.batchsize,
-        shuffle=True,
-        num_workers=args.num_workers,
-        seed=args.seed,
-    )
+    # resident dtype: float32 under float32 staging, bf16 otherwise
+    resident = torch.float32 if transfer_dtype == 'float32' else torch.bfloat16
+    device_source = None
+    if args.device_data_cache:
+        device_source = DeviceTrainingSource(
+            training_set * args.patches,
+            cropsize=args.cropsize,
+            reduction_rate=args.reduction_rate,
+            reduction_weight=reduction_weight,
+            mixup_rate=args.mixup_rate,
+            mono_rate=args.mono_rate,
+            is_complex=args.is_complex,
+            seed=args.seed,
+            dtype=resident,
+            device=device,
+        )
+        train_loader = DeviceLoader(
+            device_source,
+            batchsize=args.batchsize,
+            shuffle=True,
+            seed=args.seed,
+        )
+        logger.info('device-resident dataset: {} songs, {:.1f} MB HBM'.format(
+            len(training_set), device_source.nbytes / 1e6))
+    else:
+        train_dataset = dataset.TrainingSet(
+            training_set * args.patches,
+            cropsize=args.cropsize,
+            reduction_rate=args.reduction_rate,
+            reduction_weight=reduction_weight,
+            mixup_rate=args.mixup_rate,
+            mixup_alpha=args.mixup_alpha,
+            seed=args.seed,
+            is_complex=args.is_complex,
+            mono_rate=args.mono_rate,
+        )
+        train_loader = Loader(
+            train_dataset,
+            batchsize=args.batchsize,
+            shuffle=True,
+            num_workers=args.num_workers,
+            seed=args.seed,
+        )
 
     patch_list = dataset.make_validation_set(
         filelist=val_filelist,
@@ -282,13 +322,21 @@ def _run(args, timestamp, logger):
         n_fft=args.n_fft,
         offset=model.offset,
     )
-    val_loader = Loader(
-        dataset.ValidationSet(patch_list=patch_list,
-                              is_complex=args.is_complex),
-        batchsize=args.val_batchsize,
-        shuffle=False,
-        num_workers=args.num_workers,
-    )
+    val_source = val_loader = None
+    if device_source is not None:
+        val_source = DeviceValidationSource(
+            patch_list, is_complex=args.is_complex, dtype=resident,
+            device=device)
+        logger.info('device-resident validation: {} patches, {:.1f} MB HBM'
+                    .format(len(val_source), val_source.nbytes / 1e6))
+    else:
+        val_loader = Loader(
+            dataset.ValidationSet(patch_list=patch_list,
+                                  is_complex=args.is_complex),
+            batchsize=args.val_batchsize,
+            shuffle=False,
+            num_workers=args.num_workers,
+        )
 
     start_epoch = 0
     best_loss = np.inf
@@ -306,8 +354,14 @@ def _run(args, timestamp, logger):
     log = []
     for epoch in range(start_epoch, args.epoch):
         logger.info('# epoch {}'.format(epoch))
-        train_loss = trainer.train_epoch(train_loader)
-        val_loss = trainer.validate_epoch(val_loader)
+        if device_source is not None:
+            train_loss = trainer.train_epoch_device(device_source,
+                                                    train_loader)
+            val_loss = trainer.validate_epoch_device(val_source,
+                                                     args.val_batchsize)
+        else:
+            train_loss = trainer.train_epoch(train_loader)
+            val_loss = trainer.validate_epoch(val_loader)
 
         logger.info(
             '  * training loss = {:.6f}, validation loss = {:.6f}'

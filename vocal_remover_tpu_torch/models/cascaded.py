@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vocal_remover_tpu_torch.models.base_net import BaseNet
 from vocal_remover_tpu_torch.nn import config
@@ -72,12 +73,16 @@ class CascadedNet(nn.Module):
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
 
-    def forward(self, x, aux: bool = False, generator=None):
+    def forward(self, x, aux: bool = False, generator=None,
+                remat: bool = False):
         """(N, nin, >= max_bin, T) -> mask (N, nin, output_bin, T); with
         `aux`, (mask, aux_mask), the aux head's mask on [aux1 (+) aux2]
         (JAX `apply(aux=True)`; the reference has the head but never
         calls it). `generator` draws the channel dropout in train mode
-        (none: no dropout)."""
+        (none: no dropout). `remat` recomputes each of the five band nets
+        in the backward pass instead of keeping its activations (JAX
+        `apply(remat=True)`, `jax.checkpoint` per stage; the squeeze
+        convs are kept, as in JAX): see `_stage`."""
         if x.dim() != 4 or x.shape[2] < self.max_bin:
             raise ValueError(
                 f"CascadedNet expects (N, C, >={self.max_bin} bins, T) "
@@ -93,16 +98,19 @@ class CascadedNet(nn.Module):
         l1_in = x[:, :, :bandw]
         h1_in = x[:, :, bandw:]
         low1, low2 = self.stg1_low_band_net, self.stg2_low_band_net
-        l1 = low1[1](low1[0](l1_in, generator))
-        h1 = self.stg1_high_band_net(h1_in, generator)
+
+        def stage(net, xin):
+            return _stage(net, xin, generator, remat)
+
+        l1 = low1[1](stage(low1[0], l1_in))
+        h1 = stage(self.stg1_high_band_net, h1_in)
         aux1 = torch.cat([l1, h1], dim=2)
 
-        l2 = low2[1](low2[0](torch.cat([l1_in, l1], dim=1), generator))
-        h2 = self.stg2_high_band_net(torch.cat([h1_in, h1], dim=1), generator)
+        l2 = low2[1](stage(low2[0], torch.cat([l1_in, l1], dim=1)))
+        h2 = stage(self.stg2_high_band_net, torch.cat([h1_in, h1], dim=1))
         aux2 = torch.cat([l2, h2], dim=2)
 
-        f3 = self.stg3_full_band_net(torch.cat([x, aux1, aux2], dim=1),
-                                     generator)
+        f3 = stage(self.stg3_full_band_net, torch.cat([x, aux1, aux2], dim=1))
         mask = self._head(self.out.weight, f3)
         if aux:
             return mask, self._head(self.aux_out.weight,
@@ -151,6 +159,43 @@ class CascadedNet(nn.Module):
             if pred.shape[3] <= 0:
                 raise ValueError("input shorter than 2 * offset frames")
         return pred
+
+
+def _stage(net, x, generator, remat):
+    """`net(x, generator)`; with `remat`, under a non-reentrant
+    `torch.utils.checkpoint`, whose recompute in the backward pass
+    replays the forward exactly, as `jax.checkpoint` does:
+
+      * the channel dropout draws the same masks: checkpoint saves the
+        default generators only, not one passed as an argument, so the
+        recompute draws from a copy of `generator` as it stood when the
+        forward entered this stage (the forward's own draws, and so the
+        stream of the later stages, are those of the plain forward);
+      * batch norm's running buffers (and `num_batches_tracked`) are
+        updated once: the recompute's second update is undone."""
+    if not remat:
+        return net(x, generator)
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(xin):
+        calls.append(None)
+        if len(calls) == 1:  # the forward
+            return net(xin, generator)
+        replay = None
+        if state is not None:
+            replay = torch.Generator(device=generator.device)
+            replay.set_state(state)
+        buffers = list(net.buffers())
+        saved = [b.clone() for b in buffers]
+        try:
+            return net(xin, replay)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def param_count(model: nn.Module) -> int:

@@ -51,12 +51,30 @@ def batch_norm_train(x, weight, bias, running_mean, running_var):
     (vocal_remover_tpu/nn/functional.py:108-157): normalizes with the
     batch mean and biased variance, and updates `running_mean` /
     `running_var` in place with momentum BN_MOMENTUM and the unbiased
-    variance. A bf16 `x` has its statistics taken in float32 (the
-    float32 weight and running buffers make them so) and its output in
-    bf16."""
-    return torch.nn.functional.batch_norm(
-        x, running_mean, running_var, weight, bias, training=True,
-        momentum=BN_MOMENTUM, eps=BN_EPS)
+    variance.
+
+    A bf16 `x` takes JAX's formula: mean and variance in float32 (a bf16
+    variance loses about three digits to cancellation), `scale =
+    rsqrt(var + eps) * weight` and `shift = bias - mean * scale` in
+    float32, then `x * scale + shift` in bf16, so a bf16 chain stays
+    bf16; the running buffers stay float32."""
+    if x.dtype != torch.bfloat16:
+        return torch.nn.functional.batch_norm(
+            x, running_mean, running_var, weight, bias, training=True,
+            momentum=BN_MOMENTUM, eps=BN_EPS)
+    dims = [d for d in range(x.dim()) if d != 1]
+    var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+        running_var.mul_(1 - BN_MOMENTUM).add_(
+            BN_MOMENTUM * (var * (n / max(n - 1, 1))))
+    scale = torch.rsqrt(var + BN_EPS) * weight
+    shift = bias - mean * scale
+    shape = [1] * x.dim()
+    shape[1] = -1
+    return (x * scale.to(x.dtype).reshape(shape)
+            + shift.to(x.dtype).reshape(shape))
 
 
 def dropout2d(x, rate: float, generator: torch.Generator | None):

@@ -14,8 +14,9 @@ float64 input (the gradient parity tests) stays float64.
 
 In training (`train=True`, a BiLSTM module in train mode) the recurrence
 is `lstm_kernel.recurrence_plain` under autograd, as JAX trains with its
-`lax.scan`; the op, and so the kernel, has no gradient (ROADMAP.md
-A9(b)). Eval, validation included, runs the op: the kernel on the card.
+`lax.scan`; the op, and so the kernel, has no gradient (the JAX
+package's Pallas recurrence has no backward either). Eval, validation
+included, runs the op: the kernel on the card.
 """
 
 from __future__ import annotations

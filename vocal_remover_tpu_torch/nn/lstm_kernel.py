@@ -14,9 +14,11 @@ import this module before `torch.export.load`. The kernel takes the
 recurrent weights one row per gate column (`relayout`); nn/lstm.py
 stacks them so once per call and calls `recurrence_cols`.
 
-The op has no autograd formula (a backward kernel is ROADMAP.md A9(b)):
-a loss that reaches the recurrence raises in `backward`, on the CPU as
-on the card, rather than getting no gradient through the branch.
+The op has no autograd formula, as the JAX package's Pallas recurrence
+has no backward kernel (training runs `recurrence_plain` under
+autograd, as JAX trains through its `lax.scan`): a loss that reaches
+the op raises in `backward`, on the CPU as on the card, rather than
+getting no gradient through the branch.
 """
 
 from __future__ import annotations

@@ -2,11 +2,13 @@
 
 Counterpart of vocal_remover_tpu/train/checkpoint.py. The full training
 state (the model's parameters and BatchNorm statistics, Adam's state and
-learning rate) is one `torch.save` file, `train_state.pt`, with the JAX
-package's `.meta.json` beside it (epoch, best loss, step counter,
-plateau scheduler); both are written atomically. Resuming from
-the JAX package's flax msgpack state is ROADMAP.md A9. `save_model`
-writes the native `.vrt.npz` that inference (and the JAX package's
+learning rate) is one file with the JAX package's `.meta.json` beside it
+(epoch, best loss, step counter, plateau scheduler); both are written
+atomically. The file is told by its suffix: `train_state.pt` (what the
+CLI writes) is a `torch.save` of the state dicts; a `.msgpack` is the
+JAX package's flax state (train/flax_state.py), so a run started under
+the JAX package continues here, and the other way. `save_model` writes
+the native `.vrt.npz` that inference (and the JAX package's
 `convert.load_native`) loads.
 """
 
@@ -20,6 +22,7 @@ import tempfile
 import torch
 
 from vocal_remover_tpu_torch.models import convert
+from vocal_remover_tpu_torch.train import flax_state
 
 STATE_NAME = "train_state.pt"
 
@@ -37,11 +40,19 @@ def _atomic_write(path: str, data: bytes):
             os.unlink(tmp)
 
 
+def _is_flax(path: str) -> bool:
+    return path.endswith(".msgpack")
+
+
 def save_train_state(path: str, trainer, scheduler, epoch: int,
                      best_loss: float):
-    buf = io.BytesIO()
-    torch.save({"model": trainer.model.state_dict(),
-                "optimizer": trainer.optimizer.state_dict()}, buf)
+    if _is_flax(path):
+        blob = flax_state.state_bytes(trainer)
+    else:
+        buf = io.BytesIO()
+        torch.save({"model": trainer.model.state_dict(),
+                    "optimizer": trainer.optimizer.state_dict()}, buf)
+        blob = buf.getvalue()
     meta = {
         "epoch": epoch,
         "best_loss": best_loss,
@@ -49,18 +60,23 @@ def save_train_state(path: str, trainer, scheduler, epoch: int,
         "scheduler": scheduler.state_dict(),
         "extra": {},  # kept: the JAX package's .meta.json has the key
     }
-    _atomic_write(path, buf.getvalue())
+    _atomic_write(path, blob)
     _atomic_write(path + ".meta.json", json.dumps(meta).encode())
 
 
 def load_train_state(path: str, trainer, scheduler):
-    """Restore a trainer and scheduler in place; returns (epoch,
-    best_loss) of the saved epoch."""
-    # on the CPU: load_state_dict moves each tensor to its parameter's
-    # device, and keeps Adam's step counts on the host as Adam makes them
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    trainer.model.load_state_dict(state["model"])
-    trainer.optimizer.load_state_dict(state["optimizer"])
+    """Restore a trainer and scheduler in place from either format;
+    returns (epoch, best_loss) of the saved epoch."""
+    if _is_flax(path):
+        with open(path, "rb") as f:
+            flax_state.load(trainer, f.read())
+    else:
+        # on the CPU: load_state_dict moves each tensor to its
+        # parameter's device, and keeps Adam's step counts on the host
+        # as Adam makes them
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizer.load_state_dict(state["optimizer"])
     with open(path + ".meta.json") as f:
         meta = json.load(f)
     scheduler.load_state_dict(meta["scheduler"])

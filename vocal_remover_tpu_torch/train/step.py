@@ -8,11 +8,14 @@ validation on the offset-trimmed masked spectrogram.
   * The model trains in place (`model.train()`): batch norm on batch
     statistics with the running update on every microbatch, the
     Decoders' lerp upsample, and the BiLSTM's recurrence as the plain
-    loop under autograd (the recurrence kernel has no backward; ROADMAP.md
-    A9(b)). Validation runs the model in eval, so on the card its
-    BiLSTMs run the recurrence kernel.
+    loop under autograd (the recurrence kernel has no backward, as the
+    JAX package's Pallas recurrence has none). Validation runs the model
+    in eval, so on the card its BiLSTMs run the recurrence kernel.
   * Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`, which
-    computes what `optax.adam` computes.
+    computes what `optax.adam` computes. Parameters stay float32 (or
+    float64) in every precision mode: under `--precision bfloat16` the
+    convolutions cast them per call, so the gradients come back in the
+    parameters' dtype.
   * With `accumulation_steps` A > 1 each microbatch adds grad / A, Adam
     steps every A microbatches, and a leftover is flushed at the end of
     the epoch; A == 1 is the plain step.
@@ -20,9 +23,18 @@ validation on the offset-trimmed masked spectrogram.
   * Dropout draws from a generator seeded by (seed, step counter), as
     JAX folds the step counter into its key, so a resumed run draws the
     same masks as an uninterrupted one; `dropout=False` turns it off.
+  * `remat` recomputes the five band nets in the backward pass
+    (`CascadedNet.forward(remat=True)`): less activation memory held for
+    the backward, for one more forward of the band nets; the same
+    gradients and statistics.
   * Batches are staged host -> device by a background thread, from
     pinned memory on a side stream, in `transfer_dtype` (None: as the
-    loader gives them), and cast up to float32 (or wider) on the device.
+    loader gives them; "int8": `quantize_u8` on the host, a uint8 tensor
+    and a float32 scale, magnitudes only), and cast up to float32 (or
+    wider) on the device.
+  * `train_epoch_device` / `validate_epoch_device` take a device-resident
+    dataset (data/device_cache.py): a step uploads its crop starts and
+    augmentation flags only.
 
   * A complex-mask model (`is_complex`) takes (N, 4, F, T) batches, the
     real parts of both channels then the imaginary parts, and its
@@ -31,9 +43,6 @@ validation on the offset-trimmed masked spectrogram.
     only) adds `wave_loss_weight` times an SDR loss between the iSTFTs
     of y and mask (*) X (losses.py), the gradient flowing through the
     device iSTFT.
-
-Not ported (ROADMAP.md A9): `remat`, the device-resident dataset and
-int8 staging.
 """
 
 from __future__ import annotations
@@ -49,6 +58,24 @@ from vocal_remover_tpu_torch.train.prefetch import device_prefetch
 
 # batches staged ahead of the step by the staging thread
 PREFETCH = 2
+
+
+def quantize_u8(a):
+    """float32 magnitudes -> (uint8 array, float32 scale) with 255 at
+    the batch's largest value; the device computes q * scale. Byte for
+    byte the JAX package's C quantizer (vrtnative.c `quantize_u8`), which
+    its `Trainer._quantize_u8` runs where the extension is built: the
+    max is taken from 0 (NaN and negative values do not count), values
+    are multiplied by the float32 reciprocal of the scale, clamped to
+    [0, 255] (NaN to 0) and rounded half to even."""
+    a = np.ascontiguousarray(a, np.float32)
+    hi = np.float32(np.max(a, initial=np.float32(0), where=a > 0))
+    scale = hi / np.float32(255) if hi > 0 else np.float32(1)
+    with np.errstate(invalid="ignore"):  # inf * 0: NaN, then 0 below
+        s = a * (np.float32(1) / scale)
+    s = np.where(s > 0, s, np.float32(0))  # also NaN -> 0
+    q = np.rint(np.minimum(s, np.float32(255))).astype(np.uint8)
+    return q, np.float32(scale)
 
 
 def _complex_product(mask, X):
@@ -70,11 +97,13 @@ def _complex_magnitudes(mask, X, y):
 class Trainer:
     def __init__(self, model, learning_rate, accumulation_steps=1, seed=0,
                  dropout=True, transfer_dtype=None, aux_lambda=0.0,
-                 wave_loss=None, wave_loss_weight=0.01, device=None):
+                 remat=False, wave_loss=None, wave_loss_weight=0.01,
+                 device=None):
         """Trains `model` (a CascadedNet) in place, on `device` (None:
         the card; "cpu" when asked). A model with the serving transforms
         applied (models/serving.py: folded BatchNorm, bf16 weights,
-        packed encoders) is refused: it is for inference only."""
+        packed encoders) is refused: it is for inference only.
+        `transfer_dtype` is None, a torch dtype, or "int8"."""
         if getattr(model, "serving_transformed", False):
             raise ValueError(
                 "this model has the serving transforms applied (folded "
@@ -86,6 +115,10 @@ class Trainer:
             raise ValueError(
                 "wave_loss requires a complex-mask model (is_complex): "
                 "magnitude batches have no phase to invert to waves")
+        if transfer_dtype == "int8" and model.is_complex:
+            raise ValueError(
+                "int8 staging quantizes nonnegative magnitudes; "
+                "complex-mode batches carry signed re/im channels")
         if accumulation_steps < 1:
             raise ValueError(f"accumulation_steps {accumulation_steps} < 1")
         self.device = resolve_device(device)
@@ -95,6 +128,7 @@ class Trainer:
         self.dropout = dropout
         self.transfer_dtype = transfer_dtype
         self.aux_lambda = float(aux_lambda)
+        self.remat = bool(remat)
         self.wave_loss = wave_loss
         self.wave_loss_weight = float(wave_loss_weight)
         self.optimizer = torch.optim.Adam(
@@ -102,7 +136,7 @@ class Trainer:
             eps=1e-8)
         self.optimizer.zero_grad(set_to_none=True)
         self._step_counter = 0
-        # host seconds the last epoch's steps waited for their staged batch
+        # host seconds the last epoch's steps waited for their batch
         self.loader_wait_s = 0.0
         self._upload = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -124,8 +158,12 @@ class Trainer:
 
     @staticmethod
     def _upcast(a):
-        """Reduced staging dtypes (bf16) up to float32 before the loss;
-        float64 (the parity tests) stays."""
+        """Staged batches up to float32 before the loss: bf16 is cast, an
+        int8-staged (q, scale) pair is dequantized as q * scale (JAX
+        `_upcast`); float64 (the parity tests) stays."""
+        if isinstance(a, tuple):
+            q, scale = a
+            return q.to(torch.float32) * scale
         return a.to(torch.promote_types(a.dtype, torch.float32))
 
     def _mask_loss(self, mask, X, y):
@@ -150,11 +188,12 @@ class Trainer:
     def _loss(self, X, y, generator):
         X, y = self._upcast(X), self._upcast(y)
         if self.aux_lambda > 0:
-            mask, aux_mask = self.model(X, aux=True, generator=generator)
+            mask, aux_mask = self.model(X, aux=True, generator=generator,
+                                        remat=self.remat)
             loss = (self._mask_loss(mask, X, y) + self.aux_lambda
                     * self._mask_loss(aux_mask, X, y))
         else:
-            mask = self.model(X, generator=generator)
+            mask = self.model(X, generator=generator, remat=self.remat)
             loss = self._mask_loss(mask, X, y)
         if self.wave_loss is not None:
             loss = loss + self.wave_loss_weight * self._wave_loss_term(
@@ -162,9 +201,17 @@ class Trainer:
         return loss
 
     def _put(self, a):
+        """One host array to the device in the staging dtype; int8 gives
+        the (uint8 tensor, float32 scale) pair."""
+        if self.transfer_dtype == "int8":
+            q, scale = quantize_u8(a)
+            return self._to_device(torch.from_numpy(q)), float(scale)
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.transfer_dtype is not None:
             t = t.to(self.transfer_dtype)
+        return self._to_device(t)
+
+    def _to_device(self, t):
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -187,19 +234,31 @@ class Trainer:
         ahead on a background thread; the time spent waiting for each is
         added to `loader_wait_s`."""
         it = device_prefetch(iter(loader), self._stage, depth=PREFETCH)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                Xd, yd, blen, ev = next(it)
-            except StopIteration:
-                return
-            self.loader_wait_s += time.perf_counter() - t0
+        for Xd, yd, blen, ev in self._waited(it):
             if ev is not None:
                 cur = torch.cuda.current_stream(self.device)
                 cur.wait_event(ev)
-                Xd.record_stream(cur)
-                yd.record_stream(cur)
+                for t in (Xd, yd):
+                    (t[0] if isinstance(t, tuple) else t).record_stream(cur)
             yield Xd, yd, blen
+
+    def _gathered(self, source, index_loader):
+        """Iterate (X_dev, y_dev, batch length) of a device-resident
+        source: each index batch's starts and flags are uploaded and
+        gathered into a batch on the device; the host time spent drawing
+        them is added to `loader_wait_s`."""
+        for idx_batch in self._waited(iter(index_loader)):
+            yield (*source.gather(*idx_batch), len(idx_batch[0]))
+
+    def _waited(self, it):
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.loader_wait_s += time.perf_counter() - t0
+            yield item
 
     # ------------------------------------------------------------------
     # host-side drivers
@@ -238,11 +297,21 @@ class Trainer:
     def train_epoch(self, loader) -> float:
         """One epoch; returns the dataset-mean per-sample loss (reference
         train.py:68-105 semantics, the leftover flush included)."""
+        return self._train(self._staged(loader))
+
+    def train_epoch_device(self, source, index_loader) -> float:
+        """One epoch over a device-resident dataset (data/device_cache.py
+        `DeviceTrainingSource` driven by a `DeviceLoader`): crops and
+        augmentations are made on the device; the same loss and
+        accumulation as `train_epoch`."""
+        return self._train(self._gathered(source, index_loader))
+
+    def _train(self, batches) -> float:
         A = self.accumulation_steps
         self.model.train()
         self.loader_wait_s = 0.0
         sum_loss, n_samples, itr = None, 0, -1
-        for itr, (Xd, yd, blen) in enumerate(self._staged(loader)):
+        for itr, (Xd, yd, blen) in enumerate(batches):
             generator = self._generator()
             self._step_counter += 1
             loss = self._loss(Xd, yd, generator)
@@ -274,14 +343,22 @@ class Trainer:
         off = self.model.offset
         return pred[:, :, :, off:-off], y
 
-    @torch.no_grad()
     def validate_epoch(self, loader) -> float:
         """Dataset-mean per-sample L1 of the eval prediction (`_predict`)
         against the target centre-cropped in time (reference
         train.py:122-130)."""
+        return self._validate(self._staged(loader))
+
+    def validate_epoch_device(self, source, batchsize: int) -> float:
+        """`validate_epoch` over a `DeviceValidationSource`: the patches
+        stay on the device; nothing is uploaded."""
+        return self._validate(source.batches(batchsize))
+
+    @torch.no_grad()
+    def _validate(self, batches) -> float:
         self.model.eval()
         sum_loss, n_samples = None, 0
-        for Xd, yd, blen in self._staged(loader):
+        for Xd, yd, blen in batches:
             pred, y = self._predict(self._upcast(Xd), self._upcast(yd))
             t = pred.shape[3]
             s = (y.shape[3] - t) // 2
