@@ -23,7 +23,12 @@ Phases (each prints a line; any failure exits non-zero):
      D = conv_tapdot) at the conv kernel lab's shapes, (8, 32, 1024, 256)
      and (8, 64, 512, 128), in f32 and bf16, all three at ragged shapes,
      on an unaligned input and at Cin 512, A also at stride 2 (also with
-     ragged channel blocks), 1x1 and 7x7;
+     ragged channel blocks), 1x1 and 7x7; the int8 conv (conv_int8) at
+     every distinct geometry of one chunk of the int8 flagship at crop
+     256, batch 4 and at crop 1024, batch 24, on the activations the
+     chunk hands it, held to its plain version bit for bit (bf16 and f32
+     out), beside the bf16 conv2d of the same conv and torch._int_mm on
+     its im2col, with a profiled chunk splitting its three passes;
   4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
      a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
@@ -67,6 +72,16 @@ Phases (each prints a line; any failure exits non-zero):
      against the monolithic --exact_length stems (1 LSB), the same with
      --tta, --stream --postprocess and --stream in bf16, each with its
      launch counts, residual and xRT;
+  7a. int8 serving ([int8]): the 60 s song through the CLI with
+     --precision int8 (first, warm, warm again and --tta, in turns with
+     --precision bfloat16): conv_int8 97 launches a chunk, recurrence 5,
+     residual, SNR against the highest stems (INT8_SNR_FLOOR_DB) and the
+     bf16 stems, warm xRT beside bf16's; the calibrated static path
+     (Separator on a model whose a_scale came from two chunks of the
+     song); --input_dir on [dir]'s songs and --stream on [stream]'s song
+     in int8, each song held to the same mode's bf16 stems by SNR
+     (dynamic scales depend on which patches share a chunk, so not by
+     LSB); a 4 s song on the card and on the CPU (max LSB and SNR);
   7b. export ([export]): the flagship checkpoint through the export CLI
      on the card in bfloat16 and highest at crops 256 and 1024 (export
      seconds, file size, load seconds); the recurrence's custom op under
@@ -883,6 +898,8 @@ def phase_main_path(tmp, seed, counters, per_chunk):
             # stages (a second and more each); free it here, untimed
             del prof, mine
             gc.collect()
+    results["stems"], results["want"] = stems, want
+    results["flat_bf16_warm_s"] = results["flat_bf16", "warm"]["wall_s"]
     return ckpt, results
 
 
@@ -1352,6 +1369,392 @@ def phase_spec(tmp, ckpt, seed, counters, per_chunk, smi):
             line += (f"; trace {traces[0]}, {len(text)} bytes, names "
                      f"{KERNEL_SYMBOLS['lstm_recurrence']}")
         print(line, flush=True)
+
+
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak
+# int8 stems against the highest stems: JAX's int8 quality gate
+# (tests/test_serving_transforms.py: mask and stem SNR >= 40 dB)
+INT8_SNR_FLOOR_DB = 40.0
+INT8_CROPS = ((256, 4), (1024, 24))  # single-song and directory chunks
+INT8_PLAIN_PATCHES = 2  # patches a call of the plain version takes
+INT_MM_ROWS = 1 << 22  # largest im2col row block timed by torch._int_mm
+
+
+def int8_flagship(seed):
+    """The flagship with random weights from `seed`, as the CLI's
+    `--precision int8` makes it (fold, quantize with dynamic activation
+    scales, bf16 for the rest), on the card."""
+    from vocal_remover_tpu_torch.models import serving
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+
+    model = CascadedNet(2048, 1024, 32, 128,
+                        generator=torch.Generator().manual_seed(seed))
+    return serving.serving_variables(model, "int8").to("cuda")
+
+
+def int_mm_ms(x, q, a_scale, stride, padding, dilation) -> float:
+    """torch._int_mm of the conv's im2col matrix (int8 activations, made
+    outside the clock, K and Cout padded to multiples of 8) with the int8
+    weights. The matrix is made for the first patches that give at most
+    INT_MM_ROWS rows (all of a crop-256 chunk), and their time is scaled
+    to the whole batch."""
+    from vocal_remover_tpu_torch.nn import conv_int8_kernel as ck
+
+    cout, cin, kh, kw = q.shape
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    ho, wo = ck.out_size(x.shape, q.shape, stride, padding, dilation)
+    nb = max(1, min(x.shape[0], INT_MM_ROWS // (ho * wo)))
+    xq = ck.quantize_activation(x[:nb], a_scale)[0].to(torch.int8)
+    xp = torch.nn.functional.pad(xq.permute(0, 2, 3, 1),
+                                 (0, 0, pw, pw, ph, ph))  # NHWC, zero pad
+    taps = [xp[:, dy * dh: dy * dh + sh * (ho - 1) + 1: sh,
+               dx * dw: dx * dw + sw * (wo - 1) + 1: sw]
+            for dy in range(kh) for dx in range(kw)]
+    k = kh * kw * cin
+    kp, np_ = -(-k // 8) * 8, -(-cout // 8) * 8
+    a = torch.nn.functional.pad(torch.cat(taps, dim=-1).reshape(-1, k),
+                                (0, kp - k)).contiguous()
+    del taps, xp, xq
+    b = torch.zeros(kp, np_, dtype=torch.int8, device=a.device)
+    b[:k, :cout] = q.permute(2, 3, 1, 0).reshape(k, cout)
+    return cuda_ms(lambda: torch._int_mm(a, b), 5, warmup=1) * x.shape[0] / nb
+
+
+def phase_int8_kernel(model, seed):
+    """conv_int8 against its plain version on the card at every distinct
+    geometry of one chunk of the int8 flagship (crop 256, batch 4, the
+    single-song defaults; crop 1024, batch 24, directory mode's), on the
+    inputs the chunk hands each conv (bf16 activations). Tolerance 0: the
+    sums are exact integers, so the kernel and the plain version agree
+    bit for bit, in bf16 out as in f32 out. The kernel runs on the whole
+    batch with its dynamic scale; the plain version takes the batch
+    INT8_PLAIN_PATCHES patches at a time (its float64 copies of a
+    batch-24 input do not fit beside the forward) at the scale of the
+    whole batch, so every patch is held to it, and so is the kernel's
+    scale. Times (CUDA events): the kernel, the plain version, the
+    bf16 conv2d (cuDNN) of the dequantized weights at the same shape
+    (what int8 replaces; the library yardstick) and torch._int_mm on the
+    im2col matrix; bound: the larger of the bytes (input, weights, scales
+    and output once) over 3.35 TB/s and the useful int8 operations over
+    1,979 TOP/s. Per chunk: each geometry's numbers times its calls."""
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.nn import conv_int8_kernel as ck
+    from vocal_remover_tpu_torch.nn.layers import QConv2d
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    summary = {}
+    for crop, batch in INT8_CROPS:
+        rows = {}
+
+        def measure(mod, args):
+            x = args[0].contiguous()
+            key = (tuple(x.shape), tuple(mod.q.shape), mod.stride, mod.pad,
+                   mod.dilation)
+            if key in rows:
+                rows[key]["calls"] += 1
+                return
+            st, pd, dl = (ck._pair(v) for v in (mod.stride, mod.pad,
+                                                 mod.dilation))
+
+            def kernel(xin, dtype=torch.bfloat16):
+                return ck.conv2d_int8(xin, mod.q, mod.scale, mod.a_scale,
+                                      packed=mod.packed, stride=st,
+                                      padding=pd, dilation=dl,
+                                      out_dtype=dtype)
+
+            def plain(xin, dtype, a_scale):
+                return ck.conv2d_int8_plain(
+                    xin, mod.q, mod.scale, a_scale, stride=st,
+                    padding=pd, dilation=dl, out_dtype=dtype)
+
+            slices = [slice(i, i + INT8_PLAIN_PATCHES)
+                      for i in range(0, x.shape[0], INT8_PLAIN_PATCHES)]
+            a_scale = mod.a_scale
+            if a_scale is None:
+                # quantize_activation's scale of the whole batch, from its
+                # max |x| (exact in bf16), taken a slice at a time
+                absmax = torch.stack([x[sl].abs().amax() for sl in slices])
+                a_scale = ck.quantize_activation(absmax)[1]
+            err = 0.0
+            for dtype in (torch.bfloat16, torch.float32):
+                got = kernel(x, dtype)
+                for sl in slices:
+                    want = plain(x[sl], dtype, a_scale)
+                    torch.cuda.synchronize()
+                    err = max(err, (got[sl].float() - want.float())
+                              .abs().max().item())
+                    del want
+                del got
+            out = kernel(x)
+            ms = cuda_ms(lambda: kernel(x), 10)
+            plain_ms = cuda_ms(lambda: plain(x[slices[0]], torch.bfloat16,
+                                             a_scale), 1, warmup=0)
+            w16 = (mod.q.float() * mod.scale.reshape(-1, 1, 1, 1)).bfloat16()
+            lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+                x, w16, None, st, pd, dl), 10)
+            try:
+                mm_ms = int_mm_ms(x, mod.q, a_scale, st, pd, dl)
+            except RuntimeError as e:  # a shape _int_mm refuses
+                mm_ms = float("nan")
+                print(f"[kernel] conv_int8 {key}: torch._int_mm refused: "
+                      f"{str(e).splitlines()[0][:120]}", flush=True)
+            n, cin = x.shape[:2]
+            cout, _, kh, kw = mod.q.shape
+            ops = 2 * out.numel() * cin * kh * kw
+            n_bytes = (x.numel() * x.element_size() + mod.q.numel()
+                       + 4 * (cout + 1) + out.numel() * out.element_size())
+            rows[key] = {"calls": 1, "err": err, "ms": ms,
+                         "plain_ms": plain_ms * len(slices),
+                         "library_ms": lib_ms, "int_mm_ms": mm_ms,
+                         "t_bytes": n_bytes / PEAK_BYTES * 1e3,
+                         "t_ops": ops / PEAK_INT8_OPS * 1e3}
+            del out
+            check(err == 0.0, f"conv_int8 {key}: max abs err {err} against "
+                              "the plain version, want 0")
+
+        hooks = [m.register_forward_pre_hook(measure) for m in model.modules()
+                 if isinstance(m, QConv2d)]
+        x = torch.rand(batch, 2, model.output_bin, crop, device="cuda",
+                       generator=gen)
+        try:
+            with torch.inference_mode(), config.precision("bfloat16"):
+                model(x)
+        finally:
+            for h in hooks:
+                h.remove()
+        # one more forward under the profiler: the kernel's three passes
+        # and everything else a chunk launches
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode(), config.precision("bfloat16"):
+            model(x)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model(x)
+                torch.cuda.synchronize()
+        busy, by_name = kernel_summary(device_kernels(prof))
+        passes = {p: sum(t for name, (t, _) in by_name.items() if p in name)
+                  for p in ("amax_kernel", "quantize_kernel", "conv_int8_mma")}
+        total_us = sum(t for t, _ in by_name.values())
+        print(f"[kernel] conv_int8 crop {crop} batch {batch}, one chunk's "
+              f"forward profiled: kernel time {total_us / 1e3:.3f} ms, of it "
+              + ", ".join(f"{p} {t / 1e3:.3f} ms" for p, t in passes.items())
+              + f"; device busy {busy / 1e3:.3f} ms", flush=True)
+        del x, prof, by_name
+        torch.cuda.empty_cache()
+        calls = sum(r["calls"] for r in rows.values())
+        check(calls == 97, f"int8 chunk at crop {crop}: {calls} int8 convs, "
+                           "want 97")
+        tot = {k: sum(r[k] * r["calls"] for r in rows.values())
+               for k in ("ms", "plain_ms", "library_ms", "int_mm_ms",
+                         "t_bytes", "t_ops")}
+        tot["bound_ms"] = sum(max(r["t_bytes"], r["t_ops"]) * r["calls"]
+                              for r in rows.values())
+        tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] \
+            else "operations"
+        tot["max_abs_err"] = max(r["err"] for r in rows.values())
+        big = max(rows, key=lambda k: rows[k]["ms"] * rows[k]["calls"])
+        for key, r in sorted(rows.items(), key=lambda kv: -kv[1]["ms"]
+                             * kv[1]["calls"])[:6]:
+            print(f"[kernel] conv_int8 crop {crop} batch {batch} x "
+                  f"{key[0]} q {key[1]} stride {key[2]} pad {key[3]} "
+                  f"dilation {key[4]} ({r['calls']} a chunk): kernel "
+                  f"{r['ms']:.4f} ms, bound {max(r['t_bytes'], r['t_ops']):.4f}"
+                  f" ms ({'bytes' if r['t_bytes'] >= r['t_ops'] else 'ops'}), "
+                  f"plain {r['plain_ms']:.3f} ms, bf16 conv2d {r['library_ms']:.4f}"
+                  f" ms, _int_mm {r['int_mm_ms']:.4f} ms", flush=True)
+        print(f"[kernel] conv_int8 a chunk at crop {crop}, batch {batch} "
+              f"({len(rows)} distinct geometries, {calls} convs; largest "
+              f"{big[0]} -> {big[1][0]}): max_abs_err {tot['max_abs_err']} "
+              f"(tol 0, bf16 and f32 out, all {batch} patches), "
+              f"kernel {tot['ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
+              f"({tot['bound_by']}; bytes {tot['t_bytes']:.4f}, operations "
+              f"{tot['t_ops']:.4f}), plain {tot['plain_ms']:.2f} ms, bf16 "
+              f"conv2d (cuDNN) {tot['library_ms']:.3f} ms, torch._int_mm on "
+              f"the im2col {tot['int_mm_ms']:.3f} ms; kernel "
+              f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of bound, "
+              f"{tot['ms'] / tot['library_ms']:.2f}x the bf16 conv2d",
+              flush=True)
+        summary[crop] = tot
+    return summary
+
+
+def int8_calibrated(ckpt, song, counters, want):
+    """The calibrated static path through the library: two chunks of the
+    song's own patches (captured from a dynamic run) calibrate a_scale;
+    the song then separates with static scales. -> (wall, launches,
+    stems)."""
+    from vocal_remover_tpu_torch.models import convert, serving
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.nn.layers import QConv2d
+    from vocal_remover_tpu_torch.separate.separator import Separator
+    from vocal_remover_tpu_torch.utils import audio
+
+    wave = audio.load(song, sr=SR)[0]
+    f32 = convert.load_model(ckpt, 2048, 1024).to("cuda").eval()
+    batches = []
+    hook = f32.register_forward_pre_hook(
+        lambda m, a: batches.append(a[0].clone()) if len(batches) < 2 else None)
+    Separator(f32, batchsize=4, cropsize=256, device="cuda",
+              precision="highest").separate_wave(wave, pcm16_io=True)
+    hook.remove()
+    t0 = time.perf_counter()
+    with config.precision("highest"):
+        static = serving.serving_variables(f32, "int8",
+                                           calibration_batches=batches)
+    cal_s = time.perf_counter() - t0
+    qconvs = [m for m in static.modules() if isinstance(m, QConv2d)]
+    check(len(qconvs) == 97 and all(m.a_scale is not None for m in qconvs),
+          "calibrated int8 flagship: not every int8 conv has a static scale")
+    sp = Separator(static, batchsize=4, cropsize=256, device="cuda",
+                   precision="bfloat16")
+    runs = []
+    for _ in range(2):  # first, warm
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, v = sp.separate_wave(wave, pcm16_io=True, bucket=30 * SR)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0,
+                     {k: w.launches for k, w in counters.items()}))
+    return cal_s, runs, (y.astype(np.int32), v.astype(np.int32))
+
+
+def phase_int8(tmp, ckpt, seed, counters, per_chunk, main, dir_run):
+    """--precision int8 through the CLI: the 60 s song (first, warm and
+    --tta, each bf16 run beside it in turns), the calibrated static path,
+    --input_dir on [dir]'s songs and --stream on [stream]'s song, a 4 s
+    song on the card and on the CPU."""
+    from vocal_remover_tpu_torch.cli import inference as cli
+    from vocal_remover_tpu_torch.utils import audio
+
+    phase_t0 = time.perf_counter()
+    song = os.path.join(tmp, "song.wav")
+    mix = read_mix(song)
+    want, highest = main["want"], main["stems"]
+    int8_k = ("lstm_recurrence", "conv_int8")
+
+    def held(label, wall, launches, stems, kernels, chunks, mix, ref=None,
+             floor=None, tag="[int8]"):
+        """Launch counts, residual, SNR against `ref`; one line."""
+        for k, n in launches.items():
+            expect = per_chunk[k] * chunks if k in kernels else 0
+            check(n == expect, f"int8 {label}: {k} launched {n} times, want "
+                               f"{expect} ({chunks} chunks)")
+        y, v = stems
+        check(y.shape == v.shape == mix.shape, f"int8 {label}: stem shape")
+        resid = residual_lsb(y, v, mix)
+        check(resid <= 2, f"int8 {label}: |Instruments + Vocals - mixture| "
+                          f"= {resid} LSB > 2")
+        line = (f"{tag} {label}: {wall:.3f} s wall, launches {launches} "
+                f"({chunks} chunks), residual {resid} LSB")
+        if ref is not None:
+            snr = [snr_db(a, b) for a, b in zip(ref, stems)]
+            if floor is not None:
+                check(min(snr) >= floor, f"int8 {label}: SNR {snr} dB, floor "
+                                         f"{floor}")
+            line += (f"; SNR Instruments {snr[0]:.2f} dB, Vocals "
+                     f"{snr[1]:.2f} dB")
+        return line
+
+    out_dir = os.path.join(tmp, "int8-out")
+    walls = {}
+    for label, flags in (("bf16 first", ["--precision", "bfloat16"]),
+                         ("int8 first", ["--precision", "int8"]),
+                         ("bf16 warm", ["--precision", "bfloat16"]),
+                         ("int8 warm", ["--precision", "int8"]),
+                         ("int8 warm 2", ["--precision", "int8"]),
+                         ("bf16 warm 2", ["--precision", "bfloat16"]),
+                         ("int8 tta", ["--precision", "int8", "--tta"])):
+        (wall, launches), stages = quiet(
+            run_cli, ["-P", ckpt, "-i", song, "-o", out_dir] + flags,
+            counters)
+        tta = "tta" in label
+        stems = read_stems(out_dir, "song")
+        walls[label] = wall
+        is8 = label.startswith("int8")
+        line = held(label, wall, launches, stems,
+                    int8_k if is8 else ("lstm_recurrence",), want[tta], mix,
+                    highest["plain", "tta" if tta else "warm"],
+                    INT8_SNR_FLOOR_DB if is8 else BF16_SNR_FLOOR_DB)
+        print(f"{line} vs highest; {SONG_SECONDS / wall:.2f} x real time; "
+              f"CLI stages: {stages}", flush=True)
+        if label == "int8 warm":
+            int8_warm, warm_launches = stems, launches["conv_int8"]
+        if label == "bf16 warm":
+            bf16_warm = stems
+    snr = [snr_db(a, b) for a, b in zip(bf16_warm, int8_warm)]
+    print(f"[int8] warm xRT: int8 {SONG_SECONDS / walls['int8 warm']:.2f} / "
+          f"{SONG_SECONDS / walls['int8 warm 2']:.2f}, bf16 "
+          f"{SONG_SECONDS / walls['bf16 warm']:.2f} / "
+          f"{SONG_SECONDS / walls['bf16 warm 2']:.2f} (flat_bf16 warm "
+          f"{SONG_SECONDS / main['flat_bf16_warm_s']:.2f} in [main]); int8 "
+          f"stems vs bf16 stems: SNR {snr[0]:.2f} / {snr[1]:.2f} dB",
+          flush=True)
+
+    cal_s, runs, stems = int8_calibrated(ckpt, song, counters, want)
+    for label, (wall, launches) in zip(("first", "warm"), runs):
+        line = held(f"calibrated {label}", wall, launches, stems, int8_k,
+                    want[False], mix, highest["plain", "warm"],
+                    INT8_SNR_FLOOR_DB)
+        print(f"{line} vs highest (Separator.separate_wave, static a_scale "
+              f"from 2 chunks of the song, calibration {cal_s:.2f} s); "
+              f"{SONG_SECONDS / wall:.2f} x real time", flush=True)
+
+    # directory mode on [dir]'s songs, against its bf16 run
+    names, mixes = dir_run["names"], dir_run["mixes"]
+    d_out = os.path.join(tmp, "dir-int8")
+    torch.cuda.reset_peak_memory_stats()
+    (wall, launches), stages = quiet(
+        run_cli, ["-P", ckpt, "--input_dir", dir_run["song_dir"], "-o", d_out,
+                  "--precision", "int8"], counters)
+    peak = torch.cuda.max_memory_allocated()
+    least = [np.inf, np.inf]
+    for name, m in zip(names, mixes):
+        stems, ref = read_stems(d_out, name), read_stems(dir_run["bf16_dir"],
+                                                          name)
+        held(f"dir {name}", wall, launches, stems, int8_k, dir_run["chunks"],
+             m, ref, INT8_SNR_FLOOR_DB)
+        least = [min(a, snr_db(r, b)) for a, r, b in zip(least, ref, stems)]
+    total_s = sum(m.shape[-1] for m in mixes) / SR
+    print(f"[int8] --input_dir {len(names)} songs ({total_s:.0f} s): "
+          f"{wall:.3f} s wall, {total_s / wall:.2f} x real time, launches "
+          f"{launches} ({dir_run['chunks']} chunks), peak {peak / 2**30:.2f} "
+          f"GiB, residual <= 2 LSB on every song, least SNR vs the bf16 "
+          f"directory run Instruments {least[0]:.2f} dB, Vocals "
+          f"{least[1]:.2f} dB (floor {INT8_SNR_FLOOR_DB}); CLI stages: "
+          f"{stages}", flush=True)
+
+    # streaming on [stream]'s song, against its bf16 stream
+    long_song = os.path.join(tmp, "long.wav")
+    _, seg_chunks = stream_chunks(read_mix(long_song).shape[-1])
+    s_out = os.path.join(tmp, "stream-int8")
+    (wall, launches), stages = quiet(
+        run_cli, ["-P", ckpt, "-i", long_song, "-o", s_out, "--stream",
+                  "--precision", "int8"], counters)
+    line = held("stream", wall, launches, read_stems(s_out, "long"), int8_k,
+                seg_chunks, read_mix(long_song),
+                read_stems(os.path.join(tmp, "stream-bf16"), "long"),
+                INT8_SNR_FLOOR_DB)
+    print(f"{line} vs the bf16 stream; {STREAM_SECONDS / wall:.2f} x real "
+          f"time; CLI stages: {stages}", flush=True)
+
+    # card vs the port's CPU on a 4 s song
+    short = os.path.join(tmp, "short.wav")
+    stems = {}
+    for gpu in ("0", "-1"):
+        o = os.path.join(tmp, f"int8-ref{gpu}")
+        quiet(cli.main, ["-P", ckpt, "-i", short, "-o", o, "--gpu", gpu,
+                         "--exact_length", "--precision", "int8"])
+        stems[gpu] = read_stems(o, "short")
+    diff = max(int(np.abs(a - b).max()) for a, b in zip(stems["0"],
+                                                        stems["-1"]))
+    snr = [snr_db(a, b) for a, b in zip(stems["-1"], stems["0"])]
+    print(f"[int8] 4 s song card vs CPU (the kernel vs its plain version, "
+          f"cuDNN vs CPU bf16 around it): max {diff} LSB, SNR Instruments "
+          f"{snr[0]:.2f} dB, Vocals {snr[1]:.2f} dB", flush=True)
+    print(f"[int8] phase: {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return warm_launches
 
 
 EXPORT_PRECISIONS = ("bfloat16", "highest")  # the export CLI's default first
@@ -2628,6 +3031,7 @@ def main():
         from vocal_remover_tpu_torch.nn import (
             config,
             conv_chw_kernel,
+            conv_int8_kernel,
             conv_shift_kernel,
             conv_tapdot_kernel,
             flat_conv_kernel,
@@ -2639,7 +3043,8 @@ def main():
     # every kernel of the port (name = its csrc/ source): the wrapper
     # module holding its `launches` count, and its launches per 4-patch
     # chunk of the CLI's paths (5 band nets x 1 BiLSTM; 5 band nets x 4
-    # packed convs; none for the three channel-major conv kernels, which
+    # packed convs; 5 band nets x 19 int8 convs + the two low-band
+    # squeezes; none for the three channel-major conv kernels, which
     # no model path reaches: the lab path drives them)
     kernels = [{
         "name": "lstm_recurrence",
@@ -2676,6 +3081,14 @@ def main():
         "replaces": "scripts/conv_kernel_lab.py:178",
         "wrapper": conv_tapdot_kernel,
         "per_chunk": 0,
+    }, {
+        "name": "conv_int8",
+        "route": "cuda",
+        "source": "vocal_remover_tpu_torch/csrc/conv_int8.cu",
+        # no TPU kernel: the JAX package's int8 conv is XLA's
+        "replaces": "vocal_remover_tpu/nn/functional.py:24",
+        "wrapper": conv_int8_kernel,
+        "per_chunk": 97,
     }]
     counters = {k["name"]: k["wrapper"] for k in kernels}
 
@@ -2695,6 +3108,9 @@ def main():
     flat_rows = phase_flat_conv(args.seed)
     torch.cuda.empty_cache()
     chw_rows = phase_chw_convs(args.seed)
+    torch.cuda.empty_cache()
+    int8_rows = phase_int8_kernel(int8_flagship(args.seed), args.seed)
+    torch.cuda.empty_cache()
     mark("kernel")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2708,6 +3124,9 @@ def main():
         mark("dir")
         phase_stream(tmp, ckpt, args.seed, counters, per_chunk)
         mark("stream")
+        int8_launches = phase_int8(tmp, ckpt, args.seed, counters, per_chunk,
+                                   results, dir_run)
+        mark("int8")
         phase_export(tmp, ckpt, args.seed, counters, per_chunk, smi, dir_run)
         mark("export")
         train_launches = phase_train(tmp, args.seed, counters, smi)
@@ -2748,6 +3167,11 @@ def main():
         shown[kname] = (next(r for r in mine if r["label"] == "lab 32ch"),
                         mine)
         launches[kname] = lab_launches[kname]
+    # the int8 conv: launches of the int8 CLI's warm run on the 60 s song,
+    # times and bound summed over one chunk's 97 convs at crop 256, batch
+    # 4, error over every geometry at both crops
+    launches["conv_int8"] = int8_launches
+    shown["conv_int8"] = (int8_rows[256], list(int8_rows.values()))
     record = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],

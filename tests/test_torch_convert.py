@@ -118,7 +118,6 @@ def test_load_checkpoint_refuses_another_config(npz):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--quantize", "int8"], "A13"),
     ([], "output must end in"),
 ])
 def test_cli_refusals(npz, tmp_path, argv, match):

@@ -155,15 +155,18 @@ def test_separator_takes_its_precision(pair):
 
 @pytest.mark.parametrize("argv,names", [
     (["-i", "x.wav", "--data_parallel", "2"], "parallelism slice.*A10"),
-    (["-i", "x.wav", "--precision", "int8"], "A13"),
+    (["-i", "x.wav", "--precision", "int8", "--gpu", "-1", "-P",
+      "model.vrt.npz"], "A13"),
     (["-i", "x.wav", "-P", "model.vrtx", "--gpu", "-1"], "A11"),
 ])
 def test_cli_refuses_unported_modes(argv, names):
     """Each refused flag exits with a message naming what brings it.
-    `.vrtx` serving (A11) is ported: it passes the refusals and reaches
-    the artifact loader, which reports the missing file."""
-    if names == "A11":
-        with pytest.raises(FileNotFoundError, match="model.vrtx"):
+    `.vrtx` serving (A11) and `--precision int8` (A13) are ported: they
+    pass the refusals and reach the loader, which reports the missing
+    file."""
+    if names in ("A11", "A13"):
+        model = argv[argv.index("-P") + 1]
+        with pytest.raises(FileNotFoundError, match=model):
             cli.main(argv)
         return
     with pytest.raises(SystemExit, match=names) as e:

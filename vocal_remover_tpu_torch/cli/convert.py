@@ -6,8 +6,9 @@ Counterpart of vocal_remover_tpu/cli/convert.py: converts between the
 reference's torch `.pth` state_dicts and the native `.vrt.npz`
 checkpoints, in either direction (by the output's extension). A native
 input keeps its embedded config; the model flags apply to a `.pth`
-input (`--complex` for a complex-mask model). `--quantize int8` is
-refused: int8 weights come with int8 serving (ROADMAP.md A13).
+input (`--complex` for a complex-mask model). `--quantize int8` writes
+the kernels as per-channel symmetric int8 (the JAX package's `.q8` /
+`.q8scale` arrays), which `load_native` dequantizes on load.
 """
 
 from __future__ import annotations
@@ -25,16 +26,14 @@ def build_parser():
     p.add_argument('--nout_lstm', type=int, default=128)
     p.add_argument('--complex', action='store_true', dest='is_complex')
     p.add_argument('--quantize', choices=['int8'], default=None,
-                   help='int8 weights: not ported to the GPU package yet '
-                        '(ROADMAP.md A13)')
+                   help='store conv/dense kernels as per-channel '
+                        'symmetric int8 (~4x smaller file; dequantized '
+                        'transparently on load)')
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.quantize:
-        raise SystemExit("--quantize int8 is not ported to the GPU package "
-                         "yet: it comes with int8 serving (ROADMAP.md A13)")
 
     from vocal_remover_tpu_torch.models import convert
     from vocal_remover_tpu_torch.models.cascaded import CascadedNet
@@ -51,8 +50,10 @@ def main(argv=None):
                 args.n_fft, args.hop_length, args.nout, args.nout_lstm,
                 args.is_complex))
         convert.save_native(args.output, convert.to_jax_variables(model),
-                            convert.model_config(model))
-        print(f'wrote native checkpoint {args.output}')
+                            convert.model_config(model),
+                            quantize=args.quantize)
+        tag = f' ({args.quantize} weights)' if args.quantize else ''
+        print(f'wrote native checkpoint {args.output}{tag}')
     elif args.output.endswith('.pth'):
         model = convert.load_model(args.input, args.n_fft, args.hop_length,
                                    args.nout, args.nout_lstm)

@@ -32,12 +32,15 @@ Runs on card `--gpu` (default 0); `--gpu -1` runs on the CPU. Without a
 card and without `--gpu -1` it raises rather than fall back to the CPU.
 `--flat_conv` folds the BatchNorms and runs the enc2 / enc3 convs of
 every band net as the flat pixel-packed CUDA kernel; `--precision`
-takes `highest` (full float32), `default` (TF32 on the card) and
+takes `highest` (full float32), `default` (TF32 on the card),
 `bfloat16` (serving transform: folded BatchNorm, bf16 weights and
-activations). `--lstm_impl` is accepted for compatibility: on the card
-the BiLSTM recurrence always runs as the CUDA kernel. `--data_parallel`
-and `--precision int8` are refused with a message naming the slice that
-ports them.
+activations) and `int8` (the bfloat16 mode with the conv stack's weights
+quantized to per-channel int8 and activations quantized per conv call:
+the int8 conv kernel, csrc/conv_int8.cu; not with `--flat_conv`, as in
+the JAX CLI; a `.vrtx` artifact runs in its own precision). `--lstm_impl`
+is accepted for compatibility: on the card the BiLSTM recurrence always
+runs as the CUDA kernel. `--data_parallel` is refused with a message
+naming the slice that ports it.
 """
 
 from __future__ import annotations
@@ -99,8 +102,9 @@ def build_parser():
                         'TF32 multiplies (the card has no bf16 multiply '
                         'for f32 tensors); bfloat16 = serving mode (folded '
                         'BatchNorm, bf16-resident weights and activations, '
-                        'f32 accumulation; directory-mode default); int8 '
-                        'is not ported yet (ROADMAP.md A13)')
+                        'f32 accumulation; directory-mode default); int8 = '
+                        'bfloat16 with per-channel int8 conv weights and '
+                        'per-call int8 activations (int32 accumulation)')
     p.add_argument('--lstm_impl', type=str, default='scan',
                    choices=['scan', 'pallas'],
                    help='accepted for compatibility and ignored: the card '
@@ -153,9 +157,6 @@ def _refuse_unported(args):
         raise SystemExit("--data_parallel is not ported to the GPU package "
                          "yet: it comes with multi-card inference "
                          "(parallelism slice, ROADMAP.md A10)")
-    if args.precision == 'int8':
-        raise SystemExit("--precision int8 is not ported to the GPU package "
-                         "yet: it comes with int8 serving (ROADMAP.md A13)")
 
 
 def _input_files(input_dir: str):
@@ -247,21 +248,29 @@ def main(argv=None):
 
 def _load_checkpoint(args):
     """The CascadedNet of a `.vrt.npz` / `.pth`, serving-transformed for
-    `bfloat16` and `--flat_conv`, on the CPU."""
+    `bfloat16`, `int8` and `--flat_conv`, on the CPU."""
     from vocal_remover_tpu_torch.models import convert
 
     model = convert.load_model(args.pretrained_model, args.n_fft,
                                args.hop_length, 32, 128)
-    if args.precision == 'bfloat16' or args.flat_conv:
+    if args.precision in ('bfloat16', 'int8') or args.flat_conv:
         # serving transform: eval-BN folding, bf16-resident weights for
-        # the bf16 mode, packed enc2/enc3 weights for --flat_conv;
+        # the bf16 mode, int8 conv weights (dynamic activation scales, as
+        # the JAX CLI) for int8, packed enc2/enc3 weights for --flat_conv;
         # 'highest' / 'default' keep float32 weights
         from vocal_remover_tpu_torch.models import serving
 
         model = serving.serving_variables(
-            model, 'bfloat16' if args.precision == 'bfloat16' else None,
+            model, args.precision
+            if args.precision in ('bfloat16', 'int8') else None,
             flat=args.flat_conv)
     return model
+
+
+def compute_precision(args) -> str:
+    """The mode the model runs in: int8 is a weight transform that runs
+    under `bfloat16` (the JAX CLI sets that compute mode for it)."""
+    return 'bfloat16' if args.precision == 'int8' else args.precision
 
 
 def _run_batch(args, model, device, files):
@@ -286,7 +295,7 @@ def _run_batch(args, model, device, files):
             yield np.pad(X, ((0, 0), (0, -(-n // bucket) * bucket - n)))
 
     sp = Separator(model, batchsize=args.batchsize, cropsize=args.cropsize,
-                   device=device, precision=args.precision)
+                   device=device, precision=compute_precision(args))
     svc = SeparatorService(sp, pcm16_io=True, tta=args.tta,
                            vocals_residual=True, group=args.group)
     with _stage(f'separate (directory, {len(files)} songs)'):
@@ -321,14 +330,15 @@ def _run_single(args, model, device):
         sp = StreamingSeparator(model, batchsize=args.batchsize,
                                 pcm16_io=True, vocals_residual=True,
                                 tta=args.tta, postprocess=args.postprocess,
-                                device=device, precision=args.precision)
+                                device=device,
+                                precision=compute_precision(args))
         with _stage('separate (streamed segments)'):
             y_wave, v_wave = sp.separate_wave(X)
         _write_stems(prefix, y_wave, v_wave, sr)
         return
 
     sp = Separator(model, batchsize=args.batchsize, cropsize=args.cropsize,
-                   device=device, precision=args.precision,
+                   device=device, precision=compute_precision(args),
                    postprocess=args.postprocess)
     if not args.postprocess and not args.output_image:
         bucket = None if args.exact_length else 30 * sr

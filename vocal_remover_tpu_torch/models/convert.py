@@ -4,13 +4,17 @@ state_dicts and the JAX variables tree.
 Counterpart of vocal_remover_tpu/models/convert.py. A `.vrt.npz` holds
 the JAX package's variables tree flattened to '/'-joined keys (HWIO conv
 kernels, (in, out) dense and LSTM weights, BN scale/bias/mean/var) plus
-a JSON config record; int8-quantized leaves are dequantized on load.
+a JSON config record; `save_native(..., quantize="int8")` stores the
+kernels as int8 with per-output-channel scales (`.q8` / `.q8scale`),
+which `load_native` dequantizes.
 `from_jax_variables` / `to_jax_variables` translate between that tree
 and the port's modules, whose state_dict keys are the reference's.
 `to_jax_variables` also reads a serving-transformed module
 (models/serving.py) back as the JAX package's transformed tree: folded
-conv kernels, identity-BN shifts, and `<band net>/flat_enc/<layer>/wst`
-and `bias`; `weight_dtypes` gives each leaf's resident dtype.
+conv kernels, identity-BN shifts, `<band net>/flat_enc/<layer>/wst`
+and `bias`, and int8 convs as `<...>/conv/{q, scale[, a_scale]}`, which
+`from_jax_variables` takes too (a tree the JAX package quantized runs in
+the port); `weight_dtypes` gives each leaf's resident dtype.
 `load_checkpoint` loads either format into a model and `export_torch`
 writes one as a `.pth` (cli/convert.py).
 """
@@ -51,9 +55,34 @@ def _unflatten(flat):
     return tree
 
 
-def save_native(path: str, variables, config: dict | None = None):
-    """Atomically write a variables tree (+ model config) as a flat npz."""
+def _quantize_leaf_q8(w: np.ndarray):
+    """Per-output-channel symmetric int8: q = round(w / scale), scale =
+    absmax / 127 over all axes but the last (HWIO conv kernels and (in,
+    out) dense kernels both keep output channels last); the JAX
+    package's operations, so the arrays are its own."""
+    w = np.asarray(w, np.float32)
+    absmax = np.abs(w).reshape(-1, w.shape[-1]).max(axis=0)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def save_native(path: str, variables, config: dict | None = None,
+                quantize: str | None = None):
+    """Atomically write a variables tree (+ model config) as a flat npz.
+    quantize="int8" stores every float leaf of two or more dimensions
+    (conv / dense / LSTM kernels) as `<key>.q8` int8 + `<key>.q8scale`
+    float32 (about 4x smaller); 1-D leaves stay float32."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize mode {quantize!r}")
     flat = _flatten(variables)
+    if quantize == "int8":
+        for k in list(flat):
+            v = flat[k]
+            if v.ndim >= 2 and np.issubdtype(v.dtype, np.floating):
+                del flat[k]
+                flat[k + _Q8_SUFFIX], flat[k + _Q8_SCALE_SUFFIX] = \
+                    _quantize_leaf_q8(v)
     flat[_CONFIG_KEY] = np.frombuffer(json.dumps(config or {}).encode(),
                                       dtype=np.uint8)
     d = os.path.dirname(os.path.abspath(path))
@@ -98,6 +127,7 @@ _LSTM = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0",
          "b_ih": "bias_ih_l0", "b_hh": "bias_hh_l0"}
 _DIR = {"fwd": "", "bwd": "_reverse"}
 _TOP_INV = {tuple(v): k for k, v in _TOP.items()}
+_Q8_LEAVES = ("q", "scale", "a_scale")  # an int8 conv's leaves
 _BN_INV, _DENSE_INV, _LSTM_INV, _DIR_INV = (
     {v: k for k, v in d.items()} for d in (_BN, _DENSE, _LSTM, _DIR))
 
@@ -110,6 +140,8 @@ def _torch_key(path: tuple[str, ...]) -> str:
          for m in (["conv1", "1"] if name == "pooled_conv" else [name])]
     if p[-1] == "conv":
         return ".".join(p + ["0", "weight"])
+    if p[-2] == "conv" and p[-1] in _Q8_LEAVES:
+        return ".".join(p[:-1] + ["0", p[-1]])
     if p[-2] == "bn":
         return ".".join(p[:-2] + ["conv", "1", _BN[p[-1]]])
     if p[-2] == "dense_bn":
@@ -138,7 +170,7 @@ def _jax_path(key: str) -> tuple[str, ...] | None:
             p[i:i + 2] = ["pooled_conv"]
             break
     if p[-3:-1] == ["conv", "0"]:
-        return tuple(p[:-2])
+        return tuple(p[:-2] + ([p[-1]] if p[-1] in _Q8_LEAVES else []))
     if p[-3:-1] == ["conv", "1"]:
         return tuple(p[:-3] + ["bn", _BN_INV[p[-1]]])
     if p[-3:-1] == ["dense", "1"]:
@@ -164,13 +196,45 @@ def _to_jax_layout(a: np.ndarray) -> np.ndarray:
     return a.T if a.ndim == 2 else a
 
 
+def module_path(name: str) -> tuple[str, ...]:
+    """The JAX tree path of the kernel leaf of the conv module `name`
+    (`<...>.conv.0`, a Conv2d or QConv2d)."""
+    return _jax_path(name + ".weight")
+
+
+def _load_int8_convs(model: torch.nn.Module, flat: dict):
+    """Put a QConv2d in place of every Conv2d whose JAX leaf is an int8
+    {q, scale[, a_scale]} dict (JAX `quantize_int8`); its buffers are
+    filled by the state dict load."""
+    from vocal_remover_tpu_torch.nn.layers import QConv2d
+
+    paths = sorted(p[:-2] for p in flat if p.endswith("/q"))
+    for path in paths:
+        name = _torch_key(tuple(path.split("/")))[: -len(".weight")]
+        parent, idx = name.rsplit(".", 1)
+        seq = model.get_submodule(parent)
+        conv = seq[int(idx)]
+        q = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(
+            np.asarray(flat[path + "/q"]))))
+        a_scale = torch.zeros(()) if path + "/a_scale" in flat else None
+        seq[int(idx)] = QConv2d(q, torch.zeros(q.shape[0]), a_scale,
+                                conv.stride, conv.pad, conv.dilation)
+    if paths:
+        model.serving_transformed = True
+
+
 def from_jax_variables(model: torch.nn.Module, tree) -> torch.nn.Module:
     """Load a JAX variables tree (numpy leaves, as `load_native` returns
-    and the JAX `CascadedNet.init` makes) into `model`, in place."""
+    and the JAX `CascadedNet.init` makes) into `model`, in place. int8
+    convs of a quantized tree replace the model's Conv2d modules and keep
+    their int8 values."""
+    flat = _flatten(tree)
+    _load_int8_convs(model, flat)
     state = {
         _torch_key(tuple(path.split("/"))): torch.from_numpy(
-            np.ascontiguousarray(_to_torch_layout(np.asarray(v, np.float32))))
-        for path, v in _flatten(tree).items()
+            np.ascontiguousarray(_to_torch_layout(np.asarray(
+                v, np.int8 if path.endswith("/q") else np.float32))))
+        for path, v in flat.items()
     }
     want = {k for k in model.state_dict() if _jax_path(k) is not None}
     if set(state) != want:

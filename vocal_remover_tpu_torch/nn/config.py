@@ -23,6 +23,11 @@ mode, and the compute dtype that follows from it.
 
 The mask head and the BiLSTM's dense head run in full float32 in every
 mode (`full_float32`), as the JAX package pins them to HIGHEST.
+
+int8 serving is not a mode here but a weight transform
+(models/serving.quantize_int8) that runs under `bfloat16`, as in the JAX
+package; `calibration` routes the float convs' input amax into a
+recorder while an activation-scale calibration runs.
 """
 
 from __future__ import annotations
@@ -35,6 +40,27 @@ PRECISIONS = ("highest", "default", "bfloat16")
 
 _precision = "highest"
 _compute_dtype = torch.float32
+_calibration_recorder = None
+
+
+def get_calibration_recorder():
+    """dict (id of a conv's weight tensor -> input amax) while an int8
+    activation-scale calibration runs (models/serving.
+    calibrate_act_scales), else None."""
+    return _calibration_recorder
+
+
+@contextlib.contextmanager
+def calibration(recorder: dict):
+    """Route every float conv2d's input amax into `recorder` for the
+    duration."""
+    global _calibration_recorder
+    old = _calibration_recorder
+    _calibration_recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _calibration_recorder = old
 
 
 def _set_tf32(allow: bool):
@@ -51,7 +77,8 @@ def set_precision(p: str = "highest"):
     global _precision, _compute_dtype
     if p not in PRECISIONS:
         raise ValueError(f"precision {p!r}: expected one of {PRECISIONS} "
-                         "(int8 serving is ROADMAP.md A13)")
+                         "(int8 is a weight transform, models/serving."
+                         "quantize_int8, that runs under 'bfloat16')")
     _precision = p
     _compute_dtype = torch.bfloat16 if p == "bfloat16" else torch.float32
     _set_tf32(p == "default")

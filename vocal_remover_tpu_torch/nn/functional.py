@@ -1,14 +1,15 @@
 """Stateless NN primitives (NCHW).
 
-Counterpart of vocal_remover_tpu/nn/functional.py: the conv, eval and
-train-mode batch norm, channel dropout and the activations.
+Counterpart of vocal_remover_tpu/nn/functional.py: the conv, the int8
+serving conv, eval and train-mode batch norm, channel dropout and the
+activations.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vocal_remover_tpu_torch.nn import config
+from vocal_remover_tpu_torch.nn import config, conv_int8_kernel
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -18,12 +19,41 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def conv2d_int8(x, q, scale, a_scale=None, stride=1, padding=1, dilation=1,
+                *, packed):
+    """Quantized serving conv: int8 x int8 -> int32, dequantized to the
+    compute dtype (vocal_remover_tpu/nn/functional.py `conv2d_int8`).
+
+    `q` int8 OIHW and `scale` float32 (Cout,) come from
+    models/serving.quantize_int8 (per-output-channel symmetric weight
+    scales, BatchNorm pre-folded); `packed` is q in the kernel's layout
+    (nn/conv_int8_kernel.pack_weights, kept by nn/layers.QConv2d). The
+    activation is quantized with the
+    static 0-d `a_scale` (serving.calibrate_act_scales) or, when it is
+    None, with a dynamic amax(|x|) / 127 of this call, kept on the
+    device. The conv runs as nn/conv_int8_kernel.conv2d_int8: the CUDA
+    kernel on the card, its plain version on the CPU. Eval only."""
+    return conv_int8_kernel.conv2d_int8(
+        x.contiguous(), q, scale, a_scale, packed=packed, stride=stride,
+        padding=padding, dilation=dilation,
+        out_dtype=config.get_compute_dtype())
+
+
 def conv2d(x, w, stride=1, padding=1, dilation=1):
     """Bias-free NCHW conv with an OIHW kernel; `padding` and `dilation`
     are ints or (h, w) pairs (ASPP's anisotropic (freq, time) pairs).
 
     Input and weight are cast to the compute dtype (nn/config.py): in
-    bf16 mode activations stay bf16 and cuDNN accumulates in f32."""
+    bf16 mode activations stay bf16 and cuDNN accumulates in f32.
+
+    While a calibration recorder is active (nn/config.calibration), the
+    input's amax(|x|) is recorded under id(w), as a 0-d tensor on x's
+    device (no host sync)."""
+    rec = config.get_calibration_recorder()
+    if rec is not None:
+        amax = x.detach().float().abs().amax()
+        rec[id(w)] = amax if id(w) not in rec else torch.maximum(rec[id(w)],
+                                                                  amax)
     dt = config.get_compute_dtype()
     if x.dtype != dt:
         x = x.to(dt)

@@ -21,13 +21,14 @@ import math
 import torch
 from torch import nn
 
-from vocal_remover_tpu_torch.nn import config
+from vocal_remover_tpu_torch.nn import config, conv_int8_kernel
 from vocal_remover_tpu_torch.nn import functional as F
 from vocal_remover_tpu_torch.nn.lstm import BiLSTM
 from vocal_remover_tpu_torch.ops.resize import resize_bilinear, upsample2x
 
-__all__ = ["Conv2d", "Linear", "BatchNorm", "Conv2DBNActiv", "Encoder",
-           "Decoder", "ASPPModule", "LSTMModule", "reset_parameters"]
+__all__ = ["Conv2d", "QConv2d", "Linear", "BatchNorm", "Conv2DBNActiv",
+           "Encoder", "Decoder", "ASPPModule", "LSTMModule",
+           "reset_parameters"]
 
 
 class Conv2d(nn.Module):
@@ -46,6 +47,32 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.stride, self.pad, self.dilation)
+
+
+class QConv2d(nn.Module):
+    """An int8-quantized conv (models/serving.quantize_int8), in place of
+    a Conv2DBNActiv's `Conv2d` (JAX's {"q", "scale"[, "a_scale"]} kernel
+    leaf). Buffers, not parameters: `q` int8 (O, I, kh, kw), `scale`
+    float32 (O,), and `a_scale`, a 0-d float32 static activation scale or
+    None (dynamic, per call); `packed`, the kernel's layout of q
+    (nn/conv_int8_kernel.pack_weights), is made here and not saved."""
+
+    def __init__(self, q, scale, a_scale=None, stride=1, pad=0, dilation=1):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+        self.register_buffer("a_scale", a_scale)
+        self.register_buffer("packed", conv_int8_kernel.pack_weights(q),
+                             persistent=False)
+        self.stride, self.pad, self.dilation = stride, pad, dilation
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.packed = conv_int8_kernel.pack_weights(self.q)
+
+    def forward(self, x):
+        return F.conv2d_int8(x, self.q, self.scale, self.a_scale, self.stride,
+                             self.pad, self.dilation, packed=self.packed)
 
 
 class Linear(nn.Module):
