@@ -27,8 +27,9 @@ Phases (each prints a line; any failure exits non-zero):
      every distinct geometry of one chunk of the int8 flagship at crop
      256, batch 4 and at crop 1024, batch 24, on the activations the
      chunk hands it, held to its plain version bit for bit (bf16 and f32
-     out), beside the bf16 conv2d of the same conv and torch._int_mm on
-     its im2col, with a profiled chunk splitting its three passes;
+     out, dynamic and static scales), beside the bf16 conv2d of the same
+     conv and torch._int_mm on its im2col, timed with dynamic and with
+     static scales, with a profiled chunk splitting its two passes;
   4. main paths: the flagship CascadedNet(2048, 1024, 32, 128) with random
      weights from a seeded torch.Generator, saved as a .vrt.npz, separates
      a 60 s stereo 44.1 kHz synthetic song through the CLI, with every
@@ -1427,16 +1428,18 @@ def phase_int8_kernel(model, seed):
     inputs the chunk hands each conv (bf16 activations). Tolerance 0: the
     sums are exact integers, so the kernel and the plain version agree
     bit for bit, in bf16 out as in f32 out. The kernel runs on the whole
-    batch with its dynamic scale; the plain version takes the batch
-    INT8_PLAIN_PATCHES patches at a time (its float64 copies of a
-    batch-24 input do not fit beside the forward) at the scale of the
-    whole batch, so every patch is held to it, and so is the kernel's
-    scale. Times (CUDA events): the kernel, the plain version, the
-    bf16 conv2d (cuDNN) of the dequantized weights at the same shape
-    (what int8 replaces; the library yardstick) and torch._int_mm on the
-    im2col matrix; bound: the larger of the bytes (input, weights, scales
-    and output once) over 3.35 TB/s and the useful int8 operations over
-    1,979 TOP/s. Per chunk: each geometry's numbers times its calls."""
+    batch, with its dynamic scale and with that batch's scale given as a
+    static one; the plain version takes the batch INT8_PLAIN_PATCHES
+    patches at a time (its float64 copies of a batch-24 input do not fit
+    beside the forward) at the scale of the whole batch, so every patch
+    is held to it, and so is the kernel's scale. Times (CUDA events): the
+    kernel (dynamic, as the model runs it, and static), the plain
+    version, the bf16 conv2d (cuDNN) of the dequantized weights at the
+    same shape (what int8 replaces; the library yardstick) and
+    torch._int_mm on the im2col matrix; bound: the larger of the bytes
+    (input, weights, scales and output once) over 3.35 TB/s and the
+    useful int8 operations over 1,979 TOP/s. Per chunk: each geometry's
+    numbers times its calls."""
     from vocal_remover_tpu_torch.nn import config
     from vocal_remover_tpu_torch.nn import conv_int8_kernel as ck
     from vocal_remover_tpu_torch.nn.layers import QConv2d
@@ -1456,8 +1459,8 @@ def phase_int8_kernel(model, seed):
             st, pd, dl = (ck._pair(v) for v in (mod.stride, mod.pad,
                                                  mod.dilation))
 
-            def kernel(xin, dtype=torch.bfloat16):
-                return ck.conv2d_int8(xin, mod.q, mod.scale, mod.a_scale,
+            def kernel(xin, dtype=torch.bfloat16, a_scale=mod.a_scale):
+                return ck.conv2d_int8(xin, mod.q, mod.scale, a_scale,
                                       packed=mod.packed, stride=st,
                                       padding=pd, dilation=dl,
                                       out_dtype=dtype)
@@ -1477,16 +1480,18 @@ def phase_int8_kernel(model, seed):
                 a_scale = ck.quantize_activation(absmax)[1]
             err = 0.0
             for dtype in (torch.bfloat16, torch.float32):
-                got = kernel(x, dtype)
+                got = (kernel(x, dtype), kernel(x, dtype, a_scale))
                 for sl in slices:
                     want = plain(x[sl], dtype, a_scale)
                     torch.cuda.synchronize()
-                    err = max(err, (got[sl].float() - want.float())
-                              .abs().max().item())
+                    for g in got:
+                        err = max(err, (g[sl].float() - want.float())
+                                  .abs().max().item())
                     del want
                 del got
             out = kernel(x)
             ms = cuda_ms(lambda: kernel(x), 10)
+            ms_static = cuda_ms(lambda: kernel(x, a_scale=a_scale), 10)
             plain_ms = cuda_ms(lambda: plain(x[slices[0]], torch.bfloat16,
                                              a_scale), 1, warmup=0)
             w16 = (mod.q.float() * mod.scale.reshape(-1, 1, 1, 1)).bfloat16()
@@ -1504,6 +1509,7 @@ def phase_int8_kernel(model, seed):
             n_bytes = (x.numel() * x.element_size() + mod.q.numel()
                        + 4 * (cout + 1) + out.numel() * out.element_size())
             rows[key] = {"calls": 1, "err": err, "ms": ms,
+                         "ms_static": ms_static,
                          "plain_ms": plain_ms * len(slices),
                          "library_ms": lib_ms, "int_mm_ms": mm_ms,
                          "t_bytes": n_bytes / PEAK_BYTES * 1e3,
@@ -1522,7 +1528,7 @@ def phase_int8_kernel(model, seed):
         finally:
             for h in hooks:
                 h.remove()
-        # one more forward under the profiler: the kernel's three passes
+        # one more forward under the profiler: the kernel's two passes
         # and everything else a chunk launches
         from torch.profiler import ProfilerActivity, profile
 
@@ -1533,7 +1539,7 @@ def phase_int8_kernel(model, seed):
                 torch.cuda.synchronize()
         busy, by_name = kernel_summary(device_kernels(prof))
         passes = {p: sum(t for name, (t, _) in by_name.items() if p in name)
-                  for p in ("amax_kernel", "quantize_kernel", "conv_int8_mma")}
+                  for p in ("amax_partial", "conv_int8_tile")}
         total_us = sum(t for t, _ in by_name.values())
         print(f"[kernel] conv_int8 crop {crop} batch {batch}, one chunk's "
               f"forward profiled: kernel time {total_us / 1e3:.3f} ms, of it "
@@ -1545,8 +1551,8 @@ def phase_int8_kernel(model, seed):
         check(calls == 97, f"int8 chunk at crop {crop}: {calls} int8 convs, "
                            "want 97")
         tot = {k: sum(r[k] * r["calls"] for r in rows.values())
-               for k in ("ms", "plain_ms", "library_ms", "int_mm_ms",
-                         "t_bytes", "t_ops")}
+               for k in ("ms", "ms_static", "plain_ms", "library_ms",
+                         "int_mm_ms", "t_bytes", "t_ops")}
         tot["bound_ms"] = sum(max(r["t_bytes"], r["t_ops"]) * r["calls"]
                               for r in rows.values())
         tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] \
@@ -1558,15 +1564,18 @@ def phase_int8_kernel(model, seed):
             print(f"[kernel] conv_int8 crop {crop} batch {batch} x "
                   f"{key[0]} q {key[1]} stride {key[2]} pad {key[3]} "
                   f"dilation {key[4]} ({r['calls']} a chunk): kernel "
-                  f"{r['ms']:.4f} ms, bound {max(r['t_bytes'], r['t_ops']):.4f}"
+                  f"{r['ms']:.4f} ms (static {r['ms_static']:.4f}, "
+                  f"{100 * max(r['t_bytes'], r['t_ops']) / r['ms']:.1f}% of "
+                  f"bound), bound {max(r['t_bytes'], r['t_ops']):.4f}"
                   f" ms ({'bytes' if r['t_bytes'] >= r['t_ops'] else 'ops'}), "
                   f"plain {r['plain_ms']:.3f} ms, bf16 conv2d {r['library_ms']:.4f}"
                   f" ms, _int_mm {r['int_mm_ms']:.4f} ms", flush=True)
         print(f"[kernel] conv_int8 a chunk at crop {crop}, batch {batch} "
               f"({len(rows)} distinct geometries, {calls} convs; largest "
               f"{big[0]} -> {big[1][0]}): max_abs_err {tot['max_abs_err']} "
-              f"(tol 0, bf16 and f32 out, all {batch} patches), "
-              f"kernel {tot['ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
+              f"(tol 0, bf16 and f32 out, dynamic and static scales, all "
+              f"{batch} patches), kernel {tot['ms']:.3f} ms (static scales "
+              f"{tot['ms_static']:.3f} ms), bound {tot['bound_ms']:.4f} ms "
               f"({tot['bound_by']}; bytes {tot['t_bytes']:.4f}, operations "
               f"{tot['t_ops']:.4f}), plain {tot['plain_ms']:.2f} ms, bf16 "
               f"conv2d (cuDNN) {tot['library_ms']:.3f} ms, torch._int_mm on "
@@ -3100,8 +3109,11 @@ def main():
 
     name, smi = phase_card()
     config.set_precision("highest")
-    phase_build(kernels)
-    phase_native_build()
+    # the native decoders (gcc) build beside the kernels (nvcc)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(phase_native_build)
+        phase_build(kernels)
+        native.result()
     mark("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rec_rows = phase_recurrence(gen)

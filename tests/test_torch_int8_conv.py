@@ -161,10 +161,16 @@ def test_qconv_holder_keeps_its_buffers_and_refuses_a_bf16_cast():
 
 
 def test_pack_weights_pads_channels_to_the_kernels_multiple():
-    q = torch.randint(-127, 128, (5, 17, 3, 3), dtype=torch.int8,
+    """Cin 40 -> Cp 64, two chunks of 32 channels; per output channel
+    each chunk holds its 9 taps' 32 channels, the padding zero."""
+    assert ck.CHANNEL_PAD == 32
+    q = torch.randint(-127, 128, (5, 40, 3, 3), dtype=torch.int8,
                       generator=torch.Generator().manual_seed(0))
     packed = ck.pack_weights(q)
-    assert packed.shape == (5, 9 * 32) and ck.padded_channels(17) == 32
-    p = packed.reshape(5, 3, 3, 32)
-    assert torch.equal(p[..., :17], q.permute(0, 2, 3, 1))
-    assert not p[..., 17:].any()
+    assert packed.shape == (5, 9 * 64) and ck.padded_channels(40) == 64
+    assert packed.is_contiguous()
+    p = packed.reshape(5, 2, 3, 3, 32)
+    assert torch.equal(p[:, 0], q[:, :32].permute(0, 2, 3, 1))
+    assert torch.equal(p[:, 1, ..., :8], q[:, 32:].permute(0, 2, 3, 1))
+    assert not p[:, 1, ..., 8:].any()
+    assert ck.padded_channels(2) == 32 and ck.padded_channels(1280) == 1280
