@@ -48,7 +48,7 @@ Phases (each prints a line; any failure exits non-zero):
   5. reference: a 4 s song through the CLI on the card and on the CPU
      (plain versions of both kernels), plain and --flat_conv: stems
      within 1 LSB;
-  5b. spectrogram path ([spec]): the 60 s song through the CLI's host
+  5b. spectrogram path ([spec]): a 10 s song through the CLI's host
      STFT / iSTFT path with masks on the card: --output_image (stems
      within 1 LSB of the device pipeline with --exact_length, both
      images of (1025, frames, 3), not constant: JPEGs where PIL is
@@ -69,7 +69,7 @@ Phases (each prints a line; any failure exits non-zero):
      memory, xRT and songs/s; every song against the same song
      through Separator.separate_wave (1 LSB in highest, the SNR floor in
      bf16); the same songs one by one through the single-file bf16 path;
-  7. streaming ([stream]): a 150 s song with -i --stream in highest
+  7. streaming ([stream]): a 110 s song with -i --stream in highest
      against the monolithic --exact_length stems (1 LSB), the same with
      --tta, --stream --postprocess and --stream in bf16, each with its
      launch counts, residual and xRT;
@@ -95,10 +95,10 @@ Phases (each prints a line; any failure exits non-zero):
      stems (0 LSB); the file written on the card loaded on the CPU, and
      the card's programs moved to the CPU: one chunk of masks each
      against the card's (CROSS_DEVICE_TOL);
-  7c. training ([train]): four seeded 30 s stereo songs (instrumental stem
+  7c. training ([train]): four seeded 20 s stereo songs (instrumental stem
      plus a voice-like partial series) through the training CLI on the
      card at its full width and defaults (-C 256 -B 4 -v 0.25, -p 4,
-     highest), two epochs, then a third with --resume: every loss finite,
+     highest), one epoch, then a second with --resume: every loss finite,
      the recurrence kernel launched 5 x validation chunks a validation
      and never in the train step (the plain loop under autograd); the
      best checkpoint separates a 10 s song through the inference CLI
@@ -133,7 +133,7 @@ Phases (each prints a line; any failure exits non-zero):
      complex CascadedNet(256, 128, 8, 16) with the wave term in float64
      card vs CPU (GRAD_RTOL), and the warm complex step without and with
      the wave term beside the magnitude step (ms, samples/s, peak);
-  7d. tools ([tools]): three seeded 30 s pairs through cli.evaluate with
+  7d. tools ([tools]): one seeded 10 s pair through cli.evaluate with
      the flagship checkpoint (the device pipeline first and warm, then
      --postprocess --tta: wall, xRT, peak memory, the mean metrics) and
      cli.pseudo (s a song, (2, 1025, T) complex64 outputs), the
@@ -144,6 +144,18 @@ Phases (each prints a line; any failure exits non-zero):
      checked), and plot_log on [train]'s loss log (the summary line, then
      the PNG, or where matplotlib cannot be imported a non-zero exit
      naming it);
+  7e. parallel ([parallel], run between [train] and [tools]): this
+     script again as `--parallel-child` under `python -m torch.distributed.run
+     --standalone --nproc_per_node 1`, a world of one NCCL rank (the
+     machine has one card): the 60 s song through cli.inference
+     --data_parallel 0 (stems within 1 LSB of [main]'s plain run, 30
+     recurrence launches, wall), two 15 s songs through --input_dir
+     --data_parallel 0 against --group 1 without a mesh (1 LSB), one
+     epoch of cli.train --data_parallel 0 at [train]'s settings on its
+     songs (finite losses, recurrence 5 x validation chunks, none in the
+     step), and float64 compute_grads of CascadedNet(256, 128, 8, 16) on
+     a one-rank mesh against the same trainer without one (GRAD_RTOL of
+     each leaf's max |g|);
   8. lab path: the port's two conv tools at their default shapes and dtype
      (scripts/conv_kernel_lab.py: variants A, C, D chained and checked
      against conv2d; scripts/bench_conv_kernel.py: variant A against the
@@ -1099,7 +1111,7 @@ def phase_dir(tmp, ckpt, seed, counters, per_chunk):
             "chunks": chunks, "bf16_dir": bf16_dir}
 
 
-STREAM_SECONDS = 150  # two streamed segments plus a tail
+STREAM_SECONDS = 110  # two streamed segments, the second short
 STREAM_OWNED = 34  # the CLI's batch 4: owned patches a segment, 36 with the halo
 
 
@@ -1114,7 +1126,7 @@ def stream_chunks(n_samples: int):
 
 
 def phase_stream(tmp, ckpt, seed, counters, per_chunk):
-    """`-i --stream` on a 150 s song against the monolithic path with
+    """`-i --stream` on a 110 s song against the monolithic path with
     --exact_length (highest, with and without TTA), then --postprocess
     and bf16, each with its launch counts, residual and xRT."""
     from vocal_remover_tpu_torch.ops import stft as stft_ops
@@ -1231,10 +1243,13 @@ def read_image(path):
         return np.asarray(im)
 
 
+SPEC_SECONDS = 10  # [spec]'s song: the path, not the length, is the check
+
+
 def phase_spec(tmp, ckpt, seed, counters, per_chunk, smi):
     """The spectrogram path (host STFT, `Separator.separate` /
     `separate_tta` with masks on the card, host iSTFT) through the CLI on
-    the main path's 60 s song: --output_image against the device
+    a SPEC_SECONDS song: --output_image against the device
     pipeline with --exact_length (JPEGs when PIL is installed, then PNGs
     with PIL hidden), --postprocess (with and without TTA)
     against --stream --postprocess, bf16 + --flat_conv, a .pth of the
@@ -1242,7 +1257,11 @@ def phase_spec(tmp, ckpt, seed, counters, per_chunk, smi):
     from vocal_remover_tpu_torch.models import convert
     from vocal_remover_tpu_torch.utils import flac
 
-    song = os.path.join(tmp, "song.wav")
+    from vocal_remover_tpu_torch.utils import audio
+
+    song = os.path.join(tmp, "spec", "song.wav")
+    os.makedirs(os.path.dirname(song))
+    audio.write_wav(song, synth_song(SPEC_SECONDS, seed + 30), SR)
     mix = read_mix(song)
     n = mix.shape[-1]
     n_cov = 1024 * (n // 1024)  # the spectrogram path's stem length
@@ -1253,10 +1272,10 @@ def phase_spec(tmp, ckpt, seed, counters, per_chunk, smi):
 
     pth = os.path.join(tmp, "flagship.pth")
     torch.save(convert.load_model(ckpt, 2048, 1024).state_dict(), pth)
-    flac_song = os.path.join(tmp, "song.flac")
+    flac_song = os.path.join(tmp, "spec", "song.flac")
     t0 = time.perf_counter()
     flac.write_flac(flac_song, mix / 32768.0, SR)
-    print(f"[spec] {SONG_SECONDS} s song as 16-bit FLAC (utils/flac.py): "
+    print(f"[spec] {SPEC_SECONDS} s song as 16-bit FLAC (utils/flac.py): "
           f"{os.path.getsize(flac_song)} bytes in "
           f"{time.perf_counter() - t0:.2f} s; flagship as .pth "
           f"(torch.save of the state_dict): {os.path.getsize(pth)} bytes",
@@ -1796,19 +1815,23 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
         export_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         am = artifact.load_artifact(path, device="cuda")
-        for crop in EXPORT_CROPS:
-            am.program(crop)
+        # the highest artifact's entries serve the CPU checks below; the
+        # bf16 one's are loaded by its -P runs (their `load model` stage)
+        if prec == "highest":
+            for crop in EXPORT_CROPS:
+                am.program(crop)
         load_s = time.perf_counter() - t0
         size = os.path.getsize(path)
         check(am.meta["precision"] == prec and am.meta["platforms"] ==
               ["cuda"] and am.cropsizes == list(EXPORT_CROPS),
               f"export {prec}: meta {am.meta}")
         arts[prec] = (path, am)
+        loaded = ("load_artifact + both entries onto the card" if prec ==
+                  "highest" else "load_artifact (its meta)")
         print(f"[export] {prec}: export CLI on the card {export_s:.2f} s "
               f"(crops {list(EXPORT_CROPS)}, batch symbolic), file {size} "
               f"bytes ({size / 2**20:.1f} MiB, weights "
-              f"{am.meta['weights_dtype']}), load_artifact + both entries "
-              f"onto the card {load_s:.2f} s; torch "
+              f"{am.meta['weights_dtype']}), {loaded} {load_s:.2f} s; torch "
               f"{am.meta['torch_version']}; {smi}", flush=True)
 
     op = torch.ops.vocal_remover_tpu_torch.lstm_recurrence.default
@@ -1930,14 +1953,14 @@ def phase_export(tmp, ckpt, seed, counters, per_chunk, smi, dir_run):
 
 TRAIN_SONGS = 4  # 3 train, 1 validation at -v 0.25
 TRAIN_NFFT, TRAIN_HOP = 2048, 1024  # the training CLI's defaults
-TRAIN_SECONDS = 30
+TRAIN_SECONDS = 20
 TRAIN_PATCHES = 4  # -p: 12 items, 3 steps an epoch
 TRAIN_ARGS = ["-C", "256", "-B", "4", "-p", str(TRAIN_PATCHES), "-v",
               "0.25"]
-TRAIN_EPOCHS = 2  # then one more with --resume
+TRAIN_EPOCHS = 1  # then one more with --resume
 TRAIN_BATCH = 4
 VAL_BATCH = 4  # the CLI's default --val_batchsize
-STEP_REPEAT = 6  # warm steps on the clock
+STEP_REPEAT = 2  # warm steps on the clock
 # the CLI runs of this slice's flags, one epoch each at TRAIN_ARGS:
 # (label, flags, the precision the run leaves the process in)
 FLAG_RUNS = (
@@ -1950,7 +1973,7 @@ FLAG_RUNS = (
 )
 # remat's own configuration: the plain step's peak passes half the card
 BIG_BATCH = 8
-BIG_STEPS = 3
+BIG_STEPS = 2
 # one batch's train-mode loss at full width, card vs CPU, float32
 TRAIN_LOSS_RTOL = 1e-4
 # compute_grads of the reduced model, card vs CPU, float64: each gradient
@@ -2311,7 +2334,7 @@ def remat_on_card(seed):
           f"{worst_s:.3g} of its max (tol {GRAD_RTOL})", flush=True)
 
 
-def timed_steps(trainer, batches, warm=2, source=None):
+def timed_steps(trainer, batches, warm=1, source=None):
     """(ms a step, peak GiB) of `batches` after `warm` warm-up steps (an
     index loader's batches when `source` is a DeviceTrainingSource)."""
     run = (trainer.train_epoch if source is None
@@ -2359,7 +2382,7 @@ def train_modes(model, batches, patches, loader, tset, ramp, cli_seed,
         held = {}
         for remat in (False, True):
             t = fresh(remat=remat)
-            Xd, yd, _, _ = t._stage(batches[0])
+            Xd, yd, _, _, _ = t._stage(batches[0])
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             loss = t._loss(Xd, yd, t._generator())
@@ -2618,7 +2641,8 @@ def phase_train(tmp, seed, counters, smi):
         model = CascadedNet(TRAIN_NFFT, TRAIN_HOP, 32, 128,
                             generator=torch.Generator().manual_seed(seed))
         card = copy.deepcopy(model).cuda().train()
-        Xc, yc = (torch.from_numpy(a) for a in batches[0])
+        # two of the batch's items: the CPU's forward is the cost
+        Xc, yc = (torch.from_numpy(a[:2]) for a in batches[0])
         with torch.no_grad():
             lc = float(losses.mask_l1_loss(model.train()(Xc), Xc, yc))
             Xg, yg = Xc.cuda(), yc.cuda()
@@ -2718,8 +2742,8 @@ def phase_train(tmp, seed, counters, smi):
 
 # the tools slice ([tools]): the dataset and evaluation CLIs on the
 # flagship checkpoint of [main]
-TOOLS_SONGS = 3
-TOOLS_SECONDS = 30
+TOOLS_SONGS = 1
+TOOLS_SECONDS = 10
 CROSS_SECONDS = 4  # the pair run on the card and on the CPU
 EVAL_BATCH = 8  # the evaluate CLI's default --batchsize
 PSEUDO_BATCH = 4  # the pseudo CLI's default --batchsize
@@ -2727,6 +2751,197 @@ PSEUDO_BATCH = 4  # the pseudo CLI's default --batchsize
 # vs the CPU (largest |difference| over the largest |z|)
 EVAL_CROSS_DB = 0.01
 PSEUDO_CROSS_TOL = 1e-4
+
+
+PARALLEL_DIR_SECONDS = (15, 15)  # [parallel]'s --input_dir songs
+PARALLEL_TIMEOUT_S = 300
+
+
+def mesh_grads(seed):
+    """compute_grads of SMALL_NET in float64 on the card, by a Trainer on
+    a one-rank mesh and by the same Trainer without one; -> (loss
+    relative difference, worst leaf difference over max(its max |g|,
+    1e-3 of the model's), leaves)."""
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
+    from vocal_remover_tpu_torch.train.step import Trainer
+
+    rng = np.random.default_rng(seed)
+    X = np.abs(rng.standard_normal((2, 2, SMALL_NET[0] // 2 + 1, 256)))
+    y = X * rng.uniform(0.0, 1.0, X.shape)
+    config.set_compute_dtype(torch.float64)
+    try:
+        model = CascadedNet(*SMALL_NET,
+                            generator=torch.Generator().manual_seed(seed)
+                            ).double()
+        res = {}
+        for label, mesh in (("plain", None), ("mesh", mesh_lib.make_mesh())):
+            t = Trainer(copy.deepcopy(model), 1e-3, dropout=False,
+                        device="cuda", mesh=mesh)
+            loss, grads = t.compute_grads(X, y)
+            res[label] = loss, {k: g.cpu().numpy() for k, g in grads.items()}
+    finally:
+        config.set_compute_dtype(torch.float32)
+    (lp, gp), (lm, gm) = res["plain"], res["mesh"]
+    scale = max(np.abs(g).max() for g in gp.values())
+    worst = max(np.abs(gm[k] - g).max()
+                / max(np.abs(g).max(), 1e-3 * scale) for k, g in gp.items())
+    return abs(lm - lp) / abs(lp), worst, len(gp)
+
+
+def parallel_child(spec):
+    """The rank of [parallel] (chip_smoke.py --parallel-child SPEC, under
+    torch.distributed.run with one process): joins torchrun's world (one
+    NCCL rank on cuda:0), then runs the inference CLI on the flagship
+    with --data_parallel 0 on a single song and on a directory (and the
+    directory with --group 1, no mesh), the training CLI with
+    --data_parallel 0 for one epoch, and a one-rank mesh trainer's
+    float64 gradients against the same trainer's without a mesh; every
+    CLI run with the launch counts reset just before and read just
+    after. Writes its readings to spec["out"] as JSON."""
+    import torch.distributed as dist
+
+    from vocal_remover_tpu_torch.nn import (
+        conv_int8_kernel,
+        flat_conv_kernel,
+        lstm_kernel,
+    )
+    from vocal_remover_tpu_torch.parallel import distributed
+
+    counters = {"lstm_recurrence": lstm_kernel, "flat_conv": flat_conv_kernel,
+                "conv_int8": conv_int8_kernel}
+    t0 = time.perf_counter()
+    distributed.initialize()
+    res = {"world": [dist.get_backend(), dist.get_world_size(),
+                     str(torch.device("cuda", torch.cuda.current_device()))],
+           "init_s": time.perf_counter() - t0}
+    try:
+        dp = ["--data_parallel", "0"]
+        wall, launches = run_cli(["-P", spec["ckpt"], "-i", spec["song"],
+                                  "-o", spec["single"]] + dp, counters)
+        res["single"] = {"wall_s": wall, "launches": launches}
+        for key, flags in (("dir", dp), ("dir_group1", ["--group", "1"])):
+            wall, launches = run_cli(["-P", spec["ckpt"], "--input_dir",
+                                      spec["songs"], "-o", spec[key]] + flags,
+                                     counters)
+            res[key] = {"wall_s": wall, "launches": launches}
+        cwd = os.getcwd()
+        os.makedirs(spec["train_cwd"])
+        os.chdir(spec["train_cwd"])
+        try:
+            wall, launches, log = run_train_cli(
+                ["-d", spec["data"], "--output_dir", "models", "-E", "1"]
+                + TRAIN_ARGS + dp, counters, spec["train_cwd"])
+        finally:
+            os.chdir(cwd)
+        patches = glob.glob(os.path.join(
+            spec["train_cwd"],
+            f"cs256_sr{SR}_hl{TRAIN_HOP}_nf{TRAIN_NFFT}_of64", "*.npz"))
+        res["train"] = {"wall_s": wall, "launches": launches, "log": log,
+                        "patches": len(patches)}
+        t0 = time.perf_counter()
+        loss_rel, worst, leaves = mesh_grads(spec["seed"])
+        res["grads"] = {"loss_rel": loss_rel, "worst": worst,
+                        "leaves": leaves, "wall_s": time.perf_counter() - t0}
+    finally:
+        distributed.shutdown()
+    with open(spec["out"], "w") as f:
+        json.dump(res, f)
+
+
+def phase_parallel(tmp, ckpt, main_results, seed, smi):
+    """[parallel]: chip_smoke.py --parallel-child under torch.distributed
+    .run with one process, a world of one NCCL rank: the flagship on the
+    60 s song through cli.inference --data_parallel 0 (stems within 1
+    LSB of [main]'s plain run, 30 recurrence launches, wall), --input_dir
+    on two songs with --data_parallel 0 against --group 1 (the same
+    stems), cli.train --data_parallel 0 for one epoch at [train]'s
+    settings on its songs (finite losses, recurrence 5 x validation
+    chunks, none in the step), and float64 compute_grads of SMALL_NET on
+    a one-rank mesh against the same trainer without one (GRAD_RTOL of
+    each leaf's max |g|)."""
+    from vocal_remover_tpu_torch.utils import audio
+
+    torch.cuda.empty_cache()  # the rank is a process of its own
+    phase_t0 = time.perf_counter()
+    root = os.path.join(tmp, "parallel")
+    songs = os.path.join(root, "songs")
+    os.makedirs(songs)
+    for i, seconds in enumerate(PARALLEL_DIR_SECONDS):
+        audio.write_wav(os.path.join(songs, f"song{i}.wav"),
+                        synth_song(seconds, seed + 20 + i), SR)
+    spec = {"ckpt": ckpt, "song": os.path.join(tmp, "song.wav"),
+            "songs": songs, "data": os.path.join(tmp, "train", "dataset"),
+            "seed": seed, "out": os.path.join(root, "child.json")}
+    for key in ("single", "dir", "dir_group1", "train_cwd"):
+        spec[key] = os.path.join(root, key)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", os.path.abspath(__file__),
+         "--parallel-child", json.dumps(spec)],
+        capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"[parallel] the one-rank world exited {r.returncode}:\n"
+             f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    with open(spec["out"]) as f:
+        res = json.load(f)
+    backend, world, device = res["world"]
+    check(backend == "nccl" and world == 1,
+          f"[parallel] world {res['world']}, want one NCCL rank")
+
+    want = 5 * main_results["want"][False]
+    y, v = read_stems(spec["single"], "song")
+    ref = main_results["stems"]["plain", "warm"]
+    diff = max(int(np.abs(a - b).max()) for a, b in zip(ref, (y, v)))
+    n = res["single"]["launches"]["lstm_recurrence"]
+    check(diff <= 1, f"[parallel] --data_parallel 0 stems differ from "
+                     f"[main]'s plain run by {diff} LSB > 1")
+    check(n == want, f"[parallel] recurrence launched {n} times, want {want}")
+    print(f"[parallel] torchrun --nproc_per_node 1 ({backend}, world "
+          f"{world}, {device}; process group up in {res['init_s']:.3f} s): "
+          f"cli.inference -i ({SONG_SECONDS} s song) --data_parallel 0: "
+          f"{res['single']['wall_s']:.3f} s wall (first run of the "
+          f"process), recurrence {n} launches (want {want}), vs [main] "
+          f"plain max {diff} LSB (tol 1)", flush=True)
+
+    names = [f"song{i}" for i in range(len(PARALLEL_DIR_SECONDS))]
+    diff = max(int(np.abs(a - b).max()) for name in names
+               for a, b in zip(read_stems(spec["dir"], name),
+                               read_stems(spec["dir_group1"], name)))
+    check(diff <= 1, f"[parallel] --input_dir --data_parallel 0 stems "
+                     f"differ from --group 1's by {diff} LSB > 1")
+    print(f"[parallel] cli.inference --input_dir ({len(names)} songs of "
+          f"{PARALLEL_DIR_SECONDS} s, directory defaults) --data_parallel 0 "
+          f"{res['dir']['wall_s']:.3f} s, --group 1 without a mesh "
+          f"{res['dir_group1']['wall_s']:.3f} s, launches "
+          f"{res['dir']['launches']} / {res['dir_group1']['launches']}; "
+          f"stems max {diff} LSB apart", flush=True)
+
+    tr = res["train"]
+    chunks = -(-tr["patches"] // VAL_BATCH)
+    check(len(tr["log"]) == 1 and np.isfinite(tr["log"]).all(),
+          f"[parallel] cli.train --data_parallel 0 losses {tr['log']}")
+    n = tr["launches"]["lstm_recurrence"]
+    check(n == 5 * chunks, f"[parallel] train: recurrence launched {n} "
+                           f"times, want 5 x {chunks} validation chunks")
+    print(f"[parallel] cli.train -E 1 {' '.join(TRAIN_ARGS)} --data_parallel "
+          f"0 on [train]'s songs: {tr['wall_s']:.3f} s wall, losses "
+          f"{tr['log']}, recurrence {n} launches (5 x {chunks} validation "
+          "chunks, none in the step)", flush=True)
+
+    g = res["grads"]
+    check(g["loss_rel"] <= 1e-12 and g["worst"] <= GRAD_RTOL,
+          f"[parallel] mesh vs plain float64 gradients: loss {g['loss_rel']}"
+          f", worst leaf {g['worst']} (tol {GRAD_RTOL})")
+    print(f"[parallel] float64 compute_grads of CascadedNet{SMALL_NET} on a "
+          f"one-rank NCCL mesh vs without a mesh: loss {g['loss_rel']:.3e} "
+          f"relative, worst of {g['leaves']} leaves {g['worst']:.3e} of its "
+          f"max |g| (tol {GRAD_RTOL}), {g['wall_s']:.3f} s", flush=True)
+    print(f"[parallel] phase: {time.perf_counter() - phase_t0:.1f} s "
+          f"(launch to exit {launch_s:.1f} s); {smi}", flush=True)
 
 
 def write_pairs(root, n, seconds, seed):
@@ -2809,11 +3024,11 @@ def evaluate_json(ckpt, mix, inst, out, counters, flags=()):
 
 def phase_tools(tmp, ckpt, seed, counters, smi):
     """The tools slice ([tools]) at full width: evaluate (device pipeline,
-    then --postprocess --tta) and pseudo on TOOLS_SONGS seeded 30 s pairs
-    with the flagship .vrt.npz, the recurrence kernel's launches held to
-    5 a chunk; a CROSS_SECONDS pair through both on the card and on the
-    CPU; augment -p -1, spec_debug and dataset_images on the host; and
-    plot_log on [train]'s loss log."""
+    then --postprocess --tta) and pseudo on TOOLS_SONGS seeded pairs of
+    TOOLS_SECONDS with the flagship .vrt.npz, the recurrence kernel's
+    launches held to 5 a chunk; a CROSS_SECONDS pair through both on the
+    card and on the CPU; augment -p -1, spec_debug and dataset_images on
+    the host; and plot_log on [train]'s loss log."""
     from vocal_remover_tpu_torch.cli import (
         augment,
         dataset_images,
@@ -3032,10 +3247,14 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--parallel-child", default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if args.parallel_child is not None:
+        parallel_child(json.loads(args.parallel_child))
+        return
     try:
         from vocal_remover_tpu_torch.nn import (
             config,
@@ -3143,6 +3362,8 @@ def main():
         mark("export")
         train_launches = phase_train(tmp, args.seed, counters, smi)
         mark("train")
+        phase_parallel(tmp, ckpt, results, args.seed, smi)
+        mark("parallel")
         phase_tools(tmp, ckpt, args.seed, counters, smi)
         mark("tools")
         if args.profile:

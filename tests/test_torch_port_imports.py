@@ -35,14 +35,34 @@ def _imported_modules(path):
             yield node.module
 
 
+# what no file of the port may import: JAX, the JAX package, and the
+# libraries only the JAX package uses
+REFUSED = ("jax", "jaxlib", "vocal_remover_tpu", "flax", "msgpack", "optax")
+
+
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "vocal_remover_tpu"), (
+            assert top not in REFUSED, (
                 f"{os.path.relpath(path, ROOT)} imports {mod}")
+
+
+@pytest.mark.parametrize("name", ["__init__", "distributed", "mesh",
+                                  "policy", "collectives"])
+def test_parallel_files_import_no_jax(name):
+    """The parallel package is among the parsed files and imports torch
+    (torch.distributed), never JAX, the JAX package, flax, msgpack or
+    optax."""
+    path = os.path.join(ROOT, "vocal_remover_tpu_torch", "parallel",
+                        f"{name}.py")
+    assert path in _port_files()
+    mods = set(_imported_modules(path))
+    assert not {m.split(".")[0] for m in mods} & set(REFUSED), mods
+    if name != "__init__":
+        assert any(m.split(".")[0] == "torch" for m in mods), mods
 
 
 @pytest.mark.parametrize("module,source", [

@@ -13,6 +13,7 @@ import torch
 from vocal_remover_tpu.models import serving as jserving
 from vocal_remover_tpu.models.cascaded import CascadedNet as JCascadedNet
 from vocal_remover_tpu.nn import config as jconfig
+from vocal_remover_tpu.parallel import mesh as jmesh
 from vocal_remover_tpu.separate.separator import Separator as JSeparator
 from vocal_remover_tpu_torch.cli import inference as cli
 from vocal_remover_tpu_torch.models import convert
@@ -154,7 +155,6 @@ def test_separator_takes_its_precision(pair):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["-i", "x.wav", "--data_parallel", "2"], "parallelism slice.*A10"),
     (["-i", "x.wav", "--precision", "int8", "--gpu", "-1", "-P",
       "model.vrt.npz"], "A13"),
     (["-i", "x.wav", "-P", "model.vrtx", "--gpu", "-1"], "A11"),
@@ -172,6 +172,32 @@ def test_cli_refuses_unported_modes(argv, names):
     with pytest.raises(SystemExit, match=names) as e:
         cli.main(argv)
     assert "not ported" in str(e.value) or "ported yet" in str(e.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--input_dir", ".", "--group", "2", "--data_parallel", "2"],
+    ["-i", "x.wav", "--data_parallel", "2", "--gpu", "-1"],
+], ids=["group_and_data_parallel", "mesh_larger_than_the_world"])
+def test_cli_data_parallel_keeps_jax_errors(argv):
+    """--data_parallel runs (tests/test_torch_parallel_serving.py); the
+    JAX CLI's errors around it stay: --group with --data_parallel (JAX's
+    message), and a 2-rank mesh in a world of one process (JAX's mesh
+    assertion), which leaves no process group behind."""
+    import torch.distributed as dist
+
+    if "--group" in argv:
+        with pytest.raises(SystemExit) as e:
+            cli.main(argv)
+        assert str(e.value) == (
+            "--group batches songs on one chip; combine with "
+            "--data_parallel is not supported (pick one axis)")
+        return
+    with pytest.raises(AssertionError) as want:
+        jmesh.make_mesh(n_data=2, devices=jax.devices()[:1])
+    with pytest.raises(AssertionError) as got:
+        cli.main(argv)
+    assert str(got.value) == str(want.value)
+    assert not dist.is_initialized()
 
 
 def test_no_silent_cpu_fallback(pair, tmp_path, monkeypatch):

@@ -11,12 +11,14 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from vocal_remover_tpu.cli.train import reduction_weight_ramp as jramp
 from vocal_remover_tpu.models import convert as jconvert
+from vocal_remover_tpu.parallel import mesh as jmesh
 from vocal_remover_tpu.utils import audio as jaudio
 from vocal_remover_tpu_torch.cli import train as cli
 from vocal_remover_tpu_torch.models import convert
@@ -109,16 +111,31 @@ def test_cli_trains_writes_its_files_and_resumes(dataset_dir, tmp_path,
     assert meta["epoch"] == 2 and meta["step_counter"] == 3
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--data_parallel", "2"], "A10"),
-    (["--data_parallel", "0"], "A10"),
-])
-def test_cli_refuses_unported_flags(argv, item, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as e:
-        cli.main(["-d", str(tmp_path), "--gpu", "-1"] + argv)
-    assert f"ROADMAP.md {item}" in str(e.value.code)
-    assert argv[0] in str(e.value.code)
+@pytest.mark.parametrize("n", [2, 0])
+def test_cli_data_parallel_in_a_world_of_one(n, dataset_dir, tmp_path,
+                                             monkeypatch):
+    """Without a launcher the world is this one process: a 2-rank mesh
+    raises JAX's mesh assertion (before any file is written), and
+    --data_parallel 0 trains on a mesh of one; neither leaves a process
+    group behind. Multi-rank runs: tests/test_torch_parallel_serving.py."""
+    import torch.distributed as dist
+
+    argv = FLAGS + ["-d", dataset_dir, "-E", "1", "--output_dir",
+                    str(tmp_path / "models"), "--data_parallel", str(n)]
+    if n == 2:
+        monkeypatch.chdir(tmp_path)
+        with pytest.raises(AssertionError) as want:
+            jmesh.make_mesh(n_data=2, devices=jax.devices()[:1])
+        with pytest.raises(AssertionError) as got:
+            cli.main(argv)
+        assert str(got.value) == str(want.value)
+        assert not os.listdir(tmp_path)
+    else:
+        log = run(argv, tmp_path, monkeypatch)
+        assert len(log) == 1 and np.isfinite(log).all()
+        with open(glob.glob(str(tmp_path / "train_*.log"))[0]) as f:
+            assert "data-parallel mesh: {'data': 1, 'model': 1}" in f.read()
+    assert not dist.is_initialized()
 
 
 def test_cli_failure_exits_non_zero_and_is_logged(tmp_path):

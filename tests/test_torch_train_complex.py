@@ -22,6 +22,7 @@ from vocal_remover_tpu.data import dataset as jdataset
 from vocal_remover_tpu.data import pairing as jpairing
 from vocal_remover_tpu.models import convert as jconvert
 from vocal_remover_tpu.models.cascaded import CascadedNet as JCascadedNet
+from vocal_remover_tpu.nn import config as jconfig
 from vocal_remover_tpu.train.step import Trainer as JTrainer
 from vocal_remover_tpu.utils import audio as jaudio
 from vocal_remover_tpu_torch.cli import evaluate as eval_cli
@@ -30,6 +31,7 @@ from vocal_remover_tpu_torch.cli import train as train_cli
 from vocal_remover_tpu_torch.data import cache, dataset, pairing
 from vocal_remover_tpu_torch.models import convert
 from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+from vocal_remover_tpu_torch.nn import config as tconfig
 from vocal_remover_tpu_torch.train.step import Trainer
 
 from torch_port_helpers import TINY, tiny_batch, tiny_weights
@@ -132,7 +134,9 @@ def complex_weights():
 
 def test_complex_validate_epoch_matches_jax(complex_weights):
     """Trimmed magnitudes of mask (*) X against the centre-cropped |y|,
-    in float32: within 1e-5 relative of JAX's."""
+    in float32: within 1e-5 relative of JAX's. Both run in `highest`,
+    set here: the precision mode is process-wide, and a test of another
+    file that left either package in bfloat16 would change this one."""
     X, y = (a.astype(np.float32) for a in tiny_batch(is_complex=True))
     data = [(X, y), (X[:1] * 0.5, y[:1])]
     jt = JTrainer(JCascadedNet(*TINY, is_complex=True), complex_weights,
@@ -140,8 +144,9 @@ def test_complex_validate_epoch_matches_jax(complex_weights):
     model = convert.from_jax_variables(CascadedNet(*TINY, is_complex=True),
                                        complex_weights)
     trainer = Trainer(model, learning_rate=1e-3, device="cpu")
-    want = jt.validate_epoch(data)
-    got = trainer.validate_epoch(data)
+    with jconfig.precision("highest"), tconfig.precision("highest"):
+        want = jt.validate_epoch(data)
+        got = trainer.validate_epoch(data)
     assert np.isfinite(got) and abs(got - want) <= 1e-5 * want
 
 

@@ -39,8 +39,17 @@ quantized to per-channel int8 and activations quantized per conv call:
 the int8 conv kernel, csrc/conv_int8.cu; not with `--flat_conv`, as in
 the JAX CLI; a `.vrtx` artifact runs in its own precision). `--lstm_impl`
 is accepted for compatibility: on the card the BiLSTM recurrence always
-runs as the CUDA kernel. `--data_parallel` is refused with a message
-naming the slice that ports it.
+runs as the CUDA kernel.
+`--data_parallel N` shards the patches of each song over N ranks (0: all
+of the world's; sequence parallelism, as in the JAX CLI; --group is then
+1), one process per card, launched by torchrun:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m vocal_remover_tpu_torch.cli.inference ... --data_parallel N
+
+Rank r runs on cuda:LOCAL_RANK over NCCL; with `--gpu -1` every rank
+runs on the CPU over gloo. Rank 0 alone writes the stems and prints.
+Without a launcher the world is this one process.
 """
 
 from __future__ import annotations
@@ -64,10 +73,13 @@ STREAM_ABOVE_SECONDS = 20 * 60
 
 @contextlib.contextmanager
 def _stage(label: str):
-    """Timed progress line per pipeline stage."""
+    """Timed progress line per pipeline stage (rank 0 prints)."""
+    from vocal_remover_tpu_torch.parallel import distributed
+
     t0 = time.perf_counter()
     yield
-    print(f"  {label}: {time.perf_counter() - t0:.2f}s", flush=True)
+    if distributed.is_writer():
+        print(f"  {label}: {time.perf_counter() - t0:.2f}s", flush=True)
 
 
 def build_parser():
@@ -128,7 +140,11 @@ def build_parser():
                         'songs into one merged patch stream (default 8; '
                         '1 turns it off); leftover partial groups run '
                         'per song')
-    p.add_argument('--data_parallel', type=int, default=1)
+    p.add_argument('--data_parallel', type=int, default=1,
+                   help='shard the patch axis of each song over N ranks '
+                        '(0 = every rank of the world; sequence '
+                        'parallelism: patches are halo-free); launch one '
+                        'process per card with torch.distributed.run')
     return p
 
 
@@ -153,10 +169,11 @@ def _refuse_unported(args):
         raise SystemExit("--input_dir uses the pure-device serving path; "
                          "--postprocess/--output_image require single-file "
                          "mode")
-    if args.data_parallel != 1:
-        raise SystemExit("--data_parallel is not ported to the GPU package "
-                         "yet: it comes with multi-card inference "
-                         "(parallelism slice, ROADMAP.md A10)")
+    if args.input_dir is not None and args.group > 1 \
+            and args.data_parallel != 1:
+        raise SystemExit(
+            "--group batches songs on one chip; combine with "
+            "--data_parallel is not supported (pick one axis)")
 
 
 def _input_files(input_dir: str):
@@ -197,15 +214,22 @@ def _profiled(trace_dir, device):
 
 
 def _output_prefix(output_dir: str) -> str:
+    from vocal_remover_tpu_torch.parallel import distributed
+
     if output_dir != "":
         output_dir = output_dir.rstrip('/') + '/'
-        os.makedirs(output_dir, exist_ok=True)
+        if distributed.is_writer():
+            os.makedirs(output_dir, exist_ok=True)
     return output_dir
 
 
 def _write_stems(prefix, y_wave, v_wave, sr):
+    """Writes the two stems (rank 0 alone under a mesh)."""
+    from vocal_remover_tpu_torch.parallel import distributed
     from vocal_remover_tpu_torch.utils import audio
 
+    if not distributed.is_writer():
+        return
     audio.write_wav(f'{prefix}_Instruments.wav',
                     y_wave.astype(np.float32) / 32768.0, sr)
     audio.write_wav(f'{prefix}_Vocals.wav',
@@ -218,9 +242,16 @@ def main(argv=None):
     _refuse_unported(args)
     files = _input_files(args.input_dir) if args.input_dir else None
 
-    from vocal_remover_tpu_torch import resolve_device
+    from vocal_remover_tpu_torch.parallel import distributed, mesh
 
-    device = resolve_device("cpu" if args.gpu < 0 else f"cuda:{args.gpu}")
+    device = distributed.rank_device(args.gpu)
+    with mesh.data_parallel_mesh(args.data_parallel, device) as m:
+        _main(args, files, device, m)
+
+
+def _main(args, files, device, mesh):
+    from vocal_remover_tpu_torch.parallel import distributed
+
     with _stage('load model'):
         if args.pretrained_model.endswith('.vrtx'):
             # AOT serving artifact: the weights and the serving transform
@@ -239,11 +270,12 @@ def main(argv=None):
             model = _load_checkpoint(args)
         model = model.to(device).eval()
 
-    with _profiled(args.profile, device):
+    trace = args.profile if distributed.is_writer() else None
+    with _profiled(trace, device):
         if files is not None:
-            _run_batch(args, model, device, files)
+            _run_batch(args, model, device, files, mesh)
         else:
-            _run_single(args, model, device)
+            _run_single(args, model, device, mesh)
 
 
 def _load_checkpoint(args):
@@ -273,10 +305,11 @@ def compute_precision(args) -> str:
     return 'bfloat16' if args.precision == 'int8' else args.precision
 
 
-def _run_batch(args, model, device, files):
+def _run_batch(args, model, device, files, mesh):
     """Directory mode: every song through the pipelined service. Songs
     are zero-padded to 30 s buckets, so equal buckets group; the stems
     are trimmed back on write."""
+    from vocal_remover_tpu_torch.parallel import distributed
     from vocal_remover_tpu_torch.separate.separator import Separator
     from vocal_remover_tpu_torch.separate.service import SeparatorService
     from vocal_remover_tpu_torch.utils import audio
@@ -295,7 +328,8 @@ def _run_batch(args, model, device, files):
             yield np.pad(X, ((0, 0), (0, -(-n // bucket) * bucket - n)))
 
     sp = Separator(model, batchsize=args.batchsize, cropsize=args.cropsize,
-                   device=device, precision=compute_precision(args))
+                   device=device, precision=compute_precision(args),
+                   mesh=mesh)
     svc = SeparatorService(sp, pcm16_io=True, tta=args.tta,
                            vocals_residual=True, group=args.group)
     with _stage(f'separate (directory, {len(files)} songs)'):
@@ -304,10 +338,11 @@ def _run_batch(args, model, device, files):
             n = lengths[i]
             _write_stems(f'{output_dir}{basename}', y[:, :n], v[:, :n],
                          args.sr)
-            print(basename, 'done', flush=True)
+            if distributed.is_writer():
+                print(basename, 'done', flush=True)
 
 
-def _run_single(args, model, device):
+def _run_single(args, model, device, mesh):
     from vocal_remover_tpu_torch.separate.separator import Separator
     from vocal_remover_tpu_torch.utils import audio
 
@@ -339,7 +374,7 @@ def _run_single(args, model, device):
 
     sp = Separator(model, batchsize=args.batchsize, cropsize=args.cropsize,
                    device=device, precision=compute_precision(args),
-                   postprocess=args.postprocess)
+                   postprocess=args.postprocess, mesh=mesh)
     if not args.postprocess and not args.output_image:
         bucket = None if args.exact_length else 30 * sr
         with _stage('separate (device pipeline)'):
@@ -353,8 +388,11 @@ def _run_single(args, model, device):
 
 def _run_spectrogram(args, sp, X, sr, prefix):
     """The spectrogram path: host STFT, masks on the device, host iSTFT
-    of each stem at its natural length, images with --output_image."""
+    of each stem at its natural length, images with --output_image
+    (unsharded, as in the JAX CLI: under a mesh every rank runs it and
+    rank 0 writes)."""
     from vocal_remover_tpu_torch.ops import stft as stft_ops
+    from vocal_remover_tpu_torch.parallel import distributed
     from vocal_remover_tpu_torch.utils import audio, image, spec
 
     with _stage('stft'):
@@ -364,6 +402,8 @@ def _run_spectrogram(args, sp, X, sr, prefix):
             y_spec, v_spec = sp.separate_tta(X_spec)
         else:
             y_spec, v_spec = sp.separate(X_spec)
+    if not distributed.is_writer():
+        return
     for stem, s in (('Instruments', y_spec), ('Vocals', v_spec)):
         with _stage(f'istft + write {stem.lower()}'):
             audio.write_wav(f'{prefix}_{stem}.wav',

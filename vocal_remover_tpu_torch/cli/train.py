@@ -23,10 +23,20 @@ bfloat16 otherwise, or as `--transfer_dtype` says. `--precision
 bfloat16` trains with bf16 activations and float32 parameters,
 `--remat` recomputes the band nets in the backward pass, and
 `--device_data_cache` keeps the dataset on the card (float32 under
-float32 staging, else bf16). `--data_parallel` other than 1 is refused,
-naming ROADMAP.md A10. Unlike the JAX package's root `train.py`, which
-logs a failure and exits 0, a failed run logs the traceback and exits
-non-zero.
+float32 staging, else bf16). `--data_parallel N` trains on N ranks (0:
+every rank of the world) as one card would: one process per card,
+launched by torchrun,
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m vocal_remover_tpu_torch.cli.train ... --data_parallel N
+
+each rank on cuda:LOCAL_RANK over NCCL (`--gpu -1`: the CPU over gloo),
+drawing the same global batch and keeping its slice (parallel/). Rank 0
+alone writes the log, the loss and validation lists, the checkpoints and
+the caches (the other ranks wait for it). Songs are sharded and the
+loader seeded by node (several hosts), as in the JAX CLI. Unlike the JAX
+package's root `train.py`, which logs a failure and exits 0, a failed
+run logs the traceback and exits non-zero.
 """
 
 from __future__ import annotations
@@ -93,8 +103,9 @@ def build_parser():
                         "reference's commented-out factor, train.py:84)")
     p.add_argument('--debug', action='store_true')
     p.add_argument('--data_parallel', type=int, default=1,
-                   help='cards in the data-parallel group: only 1 is '
-                        'ported (ROADMAP.md A10)')
+                   help='ranks in the data-parallel mesh (0 = every rank '
+                        'of the world); launch one process per card with '
+                        'torch.distributed.run')
     p.add_argument('--resume', type=str, default=None,
                    help='full train-state checkpoint to resume from: the '
                         "port's train_state.pt or the JAX package's "
@@ -134,13 +145,6 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args):
-    if args.data_parallel != 1:
-        raise SystemExit("--data_parallel is not ported to the GPU package "
-                         "yet: it comes with multi-card training "
-                         "(parallelism slice, ROADMAP.md A10)")
-
-
 def reduction_weight_ramp(n_fft: int, sr: int, reduction_level: float):
     """Frequency ramp for the vocal-reduction augmentation (reference
     train.py:197-205): 0->1 below 200 Hz, 1->0 up to 22050 Hz, 0 above,
@@ -161,27 +165,33 @@ def reduction_weight_ramp(n_fft: int, sr: int, reduction_level: float):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     timestamp = datetime.now().strftime('%Y%m%d%H%M%S')
 
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.parallel import distributed
+    from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
     from vocal_remover_tpu_torch.train.logging import setup_logger
 
-    logger = setup_logger(__name__, f'train_{timestamp}.log')
-    try:
-        _run(args, timestamp, logger)
-    except BaseException:
-        logger.exception('training failed')
-        raise
-    finally:
-        for h in list(logger.handlers):
-            logger.removeHandler(h)
-            h.close()
+    device = distributed.rank_device(args.gpu)
+    with mesh_lib.data_parallel_mesh(args.data_parallel, device) as mesh:
+        logger = setup_logger(__name__, f'train_{timestamp}.log'
+                              if distributed.is_writer() else None)
+        try:
+            # the precision mode is process-wide: restored on the way out
+            with config.precision(args.precision):
+                _run(args, timestamp, logger, device, mesh)
+        except BaseException:
+            logger.exception('training failed')
+            raise
+        finally:
+            for h in list(logger.handlers):
+                logger.removeHandler(h)
+                h.close()
 
 
-def _run(args, timestamp, logger):
+def _run(args, timestamp, logger, device, mesh):
     import torch
 
-    from vocal_remover_tpu_torch import resolve_device
     from vocal_remover_tpu_torch.data import cache, dataset, pairing
     from vocal_remover_tpu_torch.data.device_cache import (
         DeviceLoader,
@@ -191,14 +201,16 @@ def _run(args, timestamp, logger):
     from vocal_remover_tpu_torch.data.loader import Loader
     from vocal_remover_tpu_torch.models import convert
     from vocal_remover_tpu_torch.models.cascaded import CascadedNet
-    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.parallel import distributed
     from vocal_remover_tpu_torch.train import checkpoint
     from vocal_remover_tpu_torch.train.plateau import ReduceLROnPlateau
     from vocal_remover_tpu_torch.train.step import Trainer
 
     logger.debug(vars(args))
-    device = resolve_device("cpu" if args.gpu < 0 else f"cuda:{args.gpu}")
-    config.set_precision(args.precision)
+    writer = distributed.is_writer()
+    if mesh is not None:
+        logger.info('data-parallel mesh: {}'.format(
+            dict(zip(mesh.mesh_dim_names, mesh.shape))))
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -219,7 +231,8 @@ def _run(args, timestamp, logger):
         logger.info('### DEBUG MODE')
         train_filelist = train_filelist[:1]
         val_filelist = val_filelist[:1]
-    elif args.val_filelist is None and args.split_mode == 'random':
+    elif args.val_filelist is None and args.split_mode == 'random' \
+            and writer:
         with open(f'val_{timestamp}.json', 'w', encoding='utf8') as f:
             json.dump(val_filelist, f, ensure_ascii=False)
 
@@ -230,11 +243,46 @@ def _run(args, timestamp, logger):
     reduction_weight = reduction_weight_ramp(
         args.n_fft, args.sr, args.reduction_level)
 
+    # several hosts: each node caches and augments a disjoint stride of
+    # the songs (decorrelated crops via host_seed); the global batch is
+    # still sharded over the mesh every step
+    _, n_hosts = distributed.process_info()
+    if n_hosts > 1:
+        train_filelist = distributed.shard_filelist(train_filelist)
+        logger.info(f'host shard: {len(train_filelist)} songs on this host')
+    if args.device_data_cache and n_hosts > 1:
+        raise SystemExit(
+            '--device_data_cache is single-host only; multi-host runs use '
+            'the host data path')
+    loader_seed = (distributed.host_seed(args.seed) if n_hosts > 1
+                   else args.seed)
+
     model = CascadedNet(args.n_fft, args.hop_length, 32, 128,
                         is_complex=args.is_complex,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.pretrained_model is not None:
         convert.load_checkpoint(args.pretrained_model, model)
+
+    # rank 0 writes the spectrogram and validation patch caches; the
+    # other ranks wait for it, then read them
+    if not writer:
+        distributed.barrier()
+    training_set = cache.make_training_set(
+        filelist=train_filelist,
+        sr=args.sr,
+        hop_length=args.hop_length,
+        n_fft=args.n_fft,
+    )
+    patch_list = dataset.make_validation_set(
+        filelist=val_filelist,
+        cropsize=args.val_cropsize,
+        sr=args.sr,
+        hop_length=args.hop_length,
+        n_fft=args.n_fft,
+        offset=model.offset,
+    )
+    if writer:
+        distributed.barrier()
 
     transfer_dtype = args.transfer_dtype
     if transfer_dtype is None:
@@ -255,6 +303,7 @@ def _run(args, timestamp, logger):
         wave_loss=args.wave_loss,
         wave_loss_weight=args.wave_loss_weight,
         device=device,
+        mesh=mesh,
     )
     scheduler = ReduceLROnPlateau(
         lr=args.learning_rate,
@@ -264,12 +313,6 @@ def _run(args, timestamp, logger):
         min_lr=args.lr_min,
     )
 
-    training_set = cache.make_training_set(
-        filelist=train_filelist,
-        sr=args.sr,
-        hop_length=args.hop_length,
-        n_fft=args.n_fft,
-    )
     # resident dtype: float32 under float32 staging, bf16 otherwise
     resident = torch.float32 if transfer_dtype == 'float32' else torch.bfloat16
     device_source = None
@@ -285,12 +328,13 @@ def _run(args, timestamp, logger):
             seed=args.seed,
             dtype=resident,
             device=device,
+            mesh=mesh,
         )
         train_loader = DeviceLoader(
             device_source,
             batchsize=args.batchsize,
             shuffle=True,
-            seed=args.seed,
+            seed=loader_seed,
         )
         logger.info('device-resident dataset: {} songs, {:.1f} MB HBM'.format(
             len(training_set), device_source.nbytes / 1e6))
@@ -311,22 +355,14 @@ def _run(args, timestamp, logger):
             batchsize=args.batchsize,
             shuffle=True,
             num_workers=args.num_workers,
-            seed=args.seed,
+            seed=loader_seed,
         )
 
-    patch_list = dataset.make_validation_set(
-        filelist=val_filelist,
-        cropsize=args.val_cropsize,
-        sr=args.sr,
-        hop_length=args.hop_length,
-        n_fft=args.n_fft,
-        offset=model.offset,
-    )
     val_source = val_loader = None
     if device_source is not None:
         val_source = DeviceValidationSource(
             patch_list, is_complex=args.is_complex, dtype=resident,
-            device=device)
+            device=device, mesh=mesh)
         logger.info('device-resident validation: {} patches, {:.1f} MB HBM'
                     .format(len(val_source), val_source.nbytes / 1e6))
     else:
@@ -350,7 +386,8 @@ def _run(args, timestamp, logger):
         train_loader.set_epoch(start_epoch)
         logger.info(f'resumed from {args.resume} at epoch {start_epoch}')
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
     log = []
     for epoch in range(start_epoch, args.epoch):
         logger.info('# epoch {}'.format(epoch))
@@ -381,8 +418,9 @@ def _run(args, timestamp, logger):
             trainer, scheduler, epoch, best_loss)
 
         log.append([train_loss, val_loss])
-        with open(f'loss_{timestamp}.json', 'w', encoding='utf8') as f:
-            json.dump(log, f, ensure_ascii=False)
+        if writer:
+            with open(f'loss_{timestamp}.json', 'w', encoding='utf8') as f:
+                json.dump(log, f, ensure_ascii=False)
 
 
 if __name__ == '__main__':

@@ -20,6 +20,10 @@ the device.
     expression, so at float32 a device batch equals the host path's
     batch bit for bit, and toggling the cache never changes a run.
   * In bf16 residency the gather casts to float32 before any arithmetic.
+  * With a `mesh` (parallel/mesh.py) the resident arrays sit on every
+    rank's card; every rank draws the same index batch, and `gather`
+    cuts this rank's rows of it (the trainer's slice of the global
+    batch).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from vocal_remover_tpu_torch import resolve_device
 from vocal_remover_tpu_torch.data import cache
 from vocal_remover_tpu_torch.data.loader import Loader
+from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
 
 # bytes claimed by resident sources in this process; never decremented
 # (sources live for a whole training run), as in the JAX package
@@ -104,12 +109,13 @@ class DeviceTrainingSource:
     """All songs' normalized magnitudes resident on `device` (None: the
     card) in `dtype`: TrainingSet's sibling for the magnitude path, with
     the same item count and per-item randomness. Use with
-    `Trainer.train_epoch_device` and a `DeviceLoader`."""
+    `Trainer.train_epoch_device` and a `DeviceLoader`; with a `mesh`,
+    the trainer's."""
 
     def __init__(self, training_set, cropsize, reduction_rate=0.0,
                  reduction_weight=None, mixup_rate=0.0, mono_rate=0.0,
                  is_complex=False, seed=0, dtype=torch.bfloat16,
-                 device=None, _mags=None):
+                 device=None, mesh=None, _mags=None):
         _refuse(is_complex, mixup_rate, mono_rate)
         if not training_set:
             # the host path iterates zero batches when int(n_songs *
@@ -119,6 +125,7 @@ class DeviceTrainingSource:
                 "device-resident dataset: the training filelist is "
                 "empty (check --val_rate / --split_mode)")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cropsize = int(cropsize)
         self.reduction_rate = float(reduction_rate)
         self.seed = seed
@@ -214,8 +221,13 @@ class DeviceTrainingSource:
 
     def gather(self, starts, reduct, swap, inst):
         """An index batch -> its (X, y) float32 (B, 2, F, cropsize)
-        batch on the device. The indices go up as one `pack_indices`
-        buffer (pinned, asynchronous on the card)."""
+        batch on the device (with a mesh, this rank's rows of it). The
+        indices go up as one `pack_indices` buffer (pinned, asynchronous
+        on the card)."""
+        if self.mesh is not None:
+            starts, reduct, swap, inst = (mesh_lib.local_rows(self.mesh, a)
+                                          for a in (starts, reduct, swap,
+                                                    inst))
         B = len(starts)
         buf = torch.from_numpy(pack_indices(starts, reduct, swap, inst))
         if self.device.type == "cuda":
@@ -236,12 +248,15 @@ def _magnitudes(path: str, coef) -> np.ndarray:
 
 class DeviceValidationSource:
     """The validation patches resident on `device` (None: the card) in
-    `dtype`, uploaded once instead of every epoch; magnitudes only."""
+    `dtype`, uploaded once instead of every epoch; magnitudes only. With
+    a `mesh`, on every rank's card (the trainer takes each rank's rows
+    of a batch)."""
 
     def __init__(self, patch_list, is_complex=False, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None):
         _refuse(is_complex)
         self.device = resolve_device(device)
+        self.mesh = mesh
         Xs, ys = [], []
         for p in patch_list:
             with np.load(p) as data:

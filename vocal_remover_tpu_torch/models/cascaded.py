@@ -111,19 +111,25 @@ class CascadedNet(nn.Module):
         aux2 = torch.cat([l2, h2], dim=2)
 
         f3 = stage(self.stg3_full_band_net, torch.cat([x, aux1, aux2], dim=1))
-        mask = self._head(self.out.weight, f3)
+        mask = self._head(self.out, f3)
         if aux:
-            return mask, self._head(self.aux_out.weight,
+            return mask, self._head(self.aux_out,
                                     torch.cat([aux1, aux2], dim=1))
         return mask
 
-    def _head(self, kernel, feat):
+    def _head(self, conv, feat):
         """The mask head always runs in full float32 (float64 in the
         parity mode), whatever the precision mode and the weights'
-        resident dtype."""
+        resident dtype. Under tensor parallelism (`conv.tp`) the 1x1
+        conv computes this rank's channels, gathered before the mask's
+        nonlinearity (the complex one mixes channels)."""
         feat = config.at_least_float32(feat)
+        if conv.tp is not None:
+            feat = conv.tp.enter(feat)
         with config.full_float32():
-            m = torch.nn.functional.conv2d(feat, kernel.to(feat.dtype))
+            m = torch.nn.functional.conv2d(feat, conv.weight.to(feat.dtype))
+        if conv.tp is not None:
+            m = conv.tp.gather(m)
         if self.is_complex:
             m = self.bounded_mask(m)
         else:

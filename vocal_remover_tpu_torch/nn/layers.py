@@ -32,7 +32,11 @@ __all__ = ["Conv2d", "QConv2d", "Linear", "BatchNorm", "Conv2DBNActiv",
 
 
 class Conv2d(nn.Module):
-    """Bias-free conv weight (O, I, kh, kw) with its geometry."""
+    """Bias-free conv weight (O, I, kh, kw) with its geometry. `tp`: this
+    rank's output-channel shard under tensor parallelism (the mask heads
+    `out` / `aux_out`; parallel/policy.py), None when whole."""
+
+    tp = None
 
     def __init__(self, nin, nout, ksize, stride=1, pad=0, dilation=1):
         super().__init__()
@@ -101,7 +105,11 @@ class Linear(nn.Module):
 class BatchNorm(nn.Module):
     """Batch norm over `axis` (1 for NCHW, -1 for (rows, C)): running
     statistics in eval; in train mode batch statistics, and the running
-    buffers and `num_batches_tracked` updated."""
+    buffers and `num_batches_tracked` updated. `group`: a mesh's data
+    axis (parallel/policy.py), whose global batch the train-mode
+    statistics are taken over; None on one device."""
+
+    group = None
 
     def __init__(self, nout, axis=1):
         super().__init__()
@@ -125,7 +133,8 @@ class BatchNorm(nn.Module):
             with torch.no_grad():
                 self.num_batches_tracked += 1
             return F.batch_norm_train(x, self.weight, self.bias,
-                                      self.running_mean, self.running_var)
+                                      self.running_mean, self.running_var,
+                                      self.group)
         return F.batch_norm(x, self.weight, self.bias, self.running_mean,
                             self.running_var, self.axis)
 
@@ -149,7 +158,12 @@ def _crop_time(skip, x):
 
 
 class Conv2DBNActiv(nn.Module):
-    """Conv2d(bias=False) -> BatchNorm2d -> activation."""
+    """Conv2d(bias=False) -> BatchNorm2d -> activation. `tp`: this rank's
+    output-channel shard under tensor parallelism (parallel/policy.py):
+    the conv, batch norm and activation run on this rank's channels,
+    which are then all-gathered; None when whole."""
+
+    tp = None
 
     def __init__(self, nin, nout, ksize=3, stride=1, pad=1, dilation=1,
                  activ="relu"):
@@ -160,7 +174,9 @@ class Conv2DBNActiv(nn.Module):
         self.activ = F.ACTIVATIONS[activ]
 
     def forward(self, x):
-        return self.activ(self.conv(x))
+        if self.tp is None:
+            return self.activ(self.conv(x))
+        return self.tp.gather(self.activ(self.conv(self.tp.enter(x))))
 
 
 class Encoder(nn.Module):
@@ -178,7 +194,10 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """Bilinear 2x upsample -> optional skip concat -> conv -> optional
-    channel dropout (train mode only)."""
+    channel dropout (train mode only; `data_shard`, a mesh's (data rank,
+    data ranks), keeps this rank's rows of the global batch's mask)."""
+
+    data_shard = None
 
     def __init__(self, nin, nout, ksize=3, stride=1, pad=1, activ="relu",
                  dropout=False):
@@ -192,13 +211,16 @@ class Decoder(nn.Module):
             x = torch.cat([x, _crop_time(skip, x)], dim=1)
         h = self.conv1(x)
         if self.dropout and self.training:
-            h = F.dropout2d(h, 0.1, generator)
+            h = F.dropout2d(h, 0.1, generator, self.data_shard)
         return h
 
 
 class ASPPModule(nn.Module):
     """Atrous spatial pyramid pooling over (freq, time) with a
-    freq-pooled branch; dilations are (freq, time) anisotropic pairs."""
+    freq-pooled branch; dilations are (freq, time) anisotropic pairs.
+    `data_shard` as Decoder's."""
+
+    data_shard = None
 
     def __init__(self, nin, nout, dilations=((4, 2), (8, 4), (12, 6)),
                  activ="relu", dropout=False):
@@ -225,7 +247,7 @@ class ASPPModule(nn.Module):
                          self.conv5(x)], dim=1)
         out = self.bottleneck(out)
         if self.dropout and self.training:
-            out = F.dropout2d(out, 0.1, generator)
+            out = F.dropout2d(out, 0.1, generator, self.data_shard)
         return out
 
 

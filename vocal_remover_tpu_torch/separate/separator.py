@@ -28,15 +28,25 @@ The spectrogram API (`separate`, `separate_tta`; JAX separator.py
 chunks) and the normalisation on the host, the masks on the device by
 the same chunk loop, and with `postprocess` `merge_artifacts` on |mask|
 (the mask's phase kept) before mask * X and (1 - mask) * X.
+
+With a `mesh` (parallel/mesh.py; JAX `Separator(mesh=)`) the wave path
+(`separate_wave`, `separate_waves`) is sequence parallel: the patch
+stream rounds up to whole multiples of `batchsize` x the mesh's ranks,
+each rank runs its contiguous share in chunks of `batchsize` (a chunk's
+memory, as without a mesh), the masks are all-gathered and every rank
+stitches. Patches are halo-free, so the stems are a one-process run's.
+As in the JAX package, the spectrogram API runs unsharded.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vocal_remover_tpu_torch import resolve_device
 from vocal_remover_tpu_torch.nn import config
+from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
 from vocal_remover_tpu_torch.ops.stft import istft, num_frames, stft
 from vocal_remover_tpu_torch.ops.windowing import (
     extract_patches,
@@ -78,14 +88,16 @@ def to_i16(w):
 class Separator:
     def __init__(self, model, batchsize: int = 4, cropsize: int = 256,
                  device=None, precision: str = "highest",
-                 postprocess: bool = False):
+                 postprocess: bool = False, mesh=None):
         """Moves `model` to `device` (default `cuda`; raises without a
         card unless the CPU is asked for). Every separation runs under
         `precision` (nn/config.py; default full float32, no TF32). A
         serving-transformed model (models/serving.py) is taken as it
         is; `bfloat16` pairs with bf16-cast weights. `postprocess`
         applies `merge_artifacts` in the spectrogram API, which it
-        then requires."""
+        then requires. `mesh`: shard the wave path's patches over all
+        of the mesh's ranks (every rank calls with the same songs and
+        gets the stems); the weights are replicated from rank 0."""
         if precision not in config.PRECISIONS:
             raise ValueError(f"precision {precision!r}: expected one of "
                              f"{config.PRECISIONS}")
@@ -96,11 +108,44 @@ class Separator:
         self.batchsize = max(1, batchsize)
         self.cropsize = cropsize
         self.postprocess = postprocess
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh is on {mesh.device_type} ranks but the "
+                    f"separator on {self.device}")
+            mesh_lib.replicate(mesh, self.model)
 
-    def _masks(self, re_pad, im_pad, inv_scale, roi):
+    def _forward(self, x, sharded: bool):
+        """Masks of the (n, C, F, crop) patches, in chunks of `batchsize`
+        (the last topped up with zero patches). `sharded` on a mesh: the
+        stream rounds up to whole multiples of batchsize x ranks, this
+        rank runs its contiguous share, and the masks are all-gathered."""
+        bs = self.batchsize
+        n_all = x.shape[0]
+        mesh = self.mesh if sharded else None
+        ranks = 1 if mesh is None else mesh.size()
+        k = -(-n_all // (bs * ranks)) * bs  # this rank's patches
+        if mesh is not None:
+            x = x[mesh.get_rank() * k:][:k]
+        out = []
+        for i in range(0, k, bs):
+            xb = x[i:i + bs]
+            if xb.shape[0] < bs:  # topped up with zero patches
+                xb = torch.cat([xb, xb.new_zeros(bs - xb.shape[0],
+                                                 *x.shape[1:])])
+            out.append(self.model(xb))
+        out = torch.cat(out)
+        if mesh is not None:
+            parts = [torch.empty_like(out) for _ in range(ranks)]
+            dist.all_gather(parts, out)
+            out = torch.cat(parts)
+        return out[:n_all]
+
+    def _masks(self, re_pad, im_pad, inv_scale, roi, sharded=True):
         """Padded (S, 2, F, T) spectrograms and (S,) scales -> stitched
         masks (S, C, F, P * roi), the patches of all songs merged into one
-        stream of whole chunks."""
+        stream of whole chunks (over the mesh's ranks when `sharded`)."""
         scale = inv_scale.view(-1, 1, 1, 1)
         if self.model.is_complex:
             feats = torch.cat([re_pad, im_pad], dim=1) * scale
@@ -109,15 +154,7 @@ class Separator:
         x = extract_patches(feats, self.cropsize, roi, self.offset)
         n_p, n_s = x.shape[:2]  # (P, S, C, F, crop)
         x = x.transpose(0, 1).reshape(n_s * n_p, *x.shape[2:])
-        bs = self.batchsize
-        out = []
-        for i in range(0, x.shape[0], bs):
-            xb = x[i:i + bs]
-            n = xb.shape[0]
-            if n < bs:  # the last chunk, topped up with zero patches
-                xb = torch.cat([xb, xb.new_zeros(bs - n, *xb.shape[1:])])
-            out.append(self.model(xb)[:n])
-        out = torch.cat(out)
+        out = self._forward(x, sharded)
         out = out.reshape(n_s, n_p, *out.shape[1:]).transpose(0, 1)
         return stitch_masks(out, self.offset)
 
@@ -242,7 +279,7 @@ class Separator:
                              device=self.device)
         with config.precision(self.precision):
             mask = self._masks(upload(X_pad.real), upload(X_pad.imag),
-                               scale, roi)[0].cpu().numpy()
+                               scale, roi, sharded=False)[0].cpu().numpy()
         if self.model.is_complex:
             mask = mask[:2] + 1j * mask[2:]
         return mask

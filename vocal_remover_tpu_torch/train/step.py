@@ -35,6 +35,15 @@ validation on the offset-trimmed masked spectrogram.
   * `train_epoch_device` / `validate_epoch_device` take a device-resident
     dataset (data/device_cache.py): a step uploads its crop starts and
     augmentation flags only.
+  * With a `mesh` (parallel/mesh.py; JAX `Trainer(mesh=)`) each rank
+    trains on its slice of the global batch and the math is the single
+    device's: batch norm takes the global batch's statistics, dropout
+    the global batch's mask, the gradients are averaged over the data
+    axis before Adam (one flat all-reduce), and the epoch losses are the
+    global per-sample means on every rank. A model axis of 2 or more
+    ranks shards the convs' output channels (parallel/policy.py).
+    Training batches must divide by the data axis, as JAX's sharding
+    requires; a validation batch that does not runs whole on every rank.
 
   * A complex-mask model (`is_complex`) takes (N, 4, F, T) batches, the
     real parts of both channels then the imaginary parts, and its
@@ -51,8 +60,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from vocal_remover_tpu_torch import resolve_device
+from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
+from vocal_remover_tpu_torch.parallel import policy
 from vocal_remover_tpu_torch.train import losses
 from vocal_remover_tpu_torch.train.prefetch import device_prefetch
 
@@ -98,12 +111,14 @@ class Trainer:
     def __init__(self, model, learning_rate, accumulation_steps=1, seed=0,
                  dropout=True, transfer_dtype=None, aux_lambda=0.0,
                  remat=False, wave_loss=None, wave_loss_weight=0.01,
-                 device=None):
+                 device=None, mesh=None):
         """Trains `model` (a CascadedNet) in place, on `device` (None:
         the card; "cpu" when asked). A model with the serving transforms
         applied (models/serving.py: folded BatchNorm, bf16 weights,
         packed encoders) is refused: it is for inference only.
-        `transfer_dtype` is None, a torch dtype, or "int8"."""
+        `transfer_dtype` is None, a torch dtype, or "int8". `mesh`: a
+        (data, model) DeviceMesh (parallel/mesh.make_mesh) whose device
+        type is `device`'s; every rank passes the same model."""
         if getattr(model, "serving_transformed", False):
             raise ValueError(
                 "this model has the serving transforms applied (folded "
@@ -123,6 +138,16 @@ class Trainer:
             raise ValueError(f"accumulation_steps {accumulation_steps} < 1")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh is on {mesh.device_type} ranks but the "
+                    f"trainer on {self.device}")
+            policy.shard_variables(mesh, self.model)
+            mesh_lib.replicate(mesh, self.model)
+            self._data_group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+            self._n_data = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
         self.accumulation_steps = int(accumulation_steps)
         self.seed = int(seed)
         self.dropout = dropout
@@ -200,13 +225,22 @@ class Trainer:
                 mask, X, y)
         return loss
 
-    def _put(self, a):
-        """One host array to the device in the staging dtype; int8 gives
-        the (uint8 tensor, float32 scale) pair."""
+    def _rows(self, a, whole_ok=False):
+        """This rank's rows of a global batch (all of it without a
+        mesh; see mesh.local_rows for `whole_ok`)."""
+        if self.mesh is None:
+            return a
+        return mesh_lib.local_rows(self.mesh, a, whole_ok)
+
+    def _put(self, a, whole_ok=False):
+        """This rank's rows of one host array to the device in the
+        staging dtype; int8 gives the (uint8 tensor, float32 scale) pair,
+        the scale that of the global batch, as in JAX."""
         if self.transfer_dtype == "int8":
             q, scale = quantize_u8(a)
-            return self._to_device(torch.from_numpy(q)), float(scale)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+            return (self._to_device(torch.from_numpy(self._rows(q, whole_ok))),
+                    float(scale))
+        t = torch.from_numpy(np.ascontiguousarray(self._rows(a, whole_ok)))
         if self.transfer_dtype is not None:
             t = t.to(self.transfer_dtype)
         return self._to_device(t)
@@ -216,39 +250,77 @@ class Trainer:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _stage(self, batch):
-        """(X, y) host batch -> (X_dev, y_dev, batch length, event): the
-        copies run on the upload stream; `event` marks their end (None
-        on the CPU)."""
+    def _shared(self, n: int) -> bool:
+        """Whether a batch of `n` runs whole on every rank of the mesh
+        (validation only: it does not divide by the data axis)."""
+        return self.mesh is not None and n % self._n_data != 0
+
+    def _local_count(self, n: int) -> int:
+        """The rows of a global batch of `n` that this rank holds."""
+        return n if self.mesh is None or self._shared(n) else n // self._n_data
+
+    def _stage(self, batch, whole_ok=False):
+        """(X, y) global host batch -> (X_dev, y_dev, rows, shared,
+        event): this rank's rows (all of a shared batch), copied on the
+        upload stream; `event` marks the copies' end (None on the
+        CPU)."""
         X, y = batch
+        rows, shared = self._local_count(len(X)), self._shared(len(X))
         if self._upload is None:
-            return self._put(X), self._put(y), len(X), None
+            return (self._put(X, whole_ok), self._put(y, whole_ok), rows,
+                    shared, None)
         with torch.cuda.device(self.device), torch.cuda.stream(self._upload):
-            Xd, yd = self._put(X), self._put(y)
+            Xd, yd = self._put(X, whole_ok), self._put(y, whole_ok)
             ev = torch.cuda.Event()
             ev.record()
-        return Xd, yd, len(X), ev
+        return Xd, yd, rows, shared, ev
 
-    def _staged(self, loader):
-        """Iterate (X_dev, y_dev, batch length), staged PREFETCH batches
+    def _staged(self, loader, whole_ok=False):
+        """Iterate (X_dev, y_dev, rows, shared), staged PREFETCH batches
         ahead on a background thread; the time spent waiting for each is
         added to `loader_wait_s`."""
-        it = device_prefetch(iter(loader), self._stage, depth=PREFETCH)
-        for Xd, yd, blen, ev in self._waited(it):
+        it = device_prefetch(iter(loader),
+                             lambda b: self._stage(b, whole_ok),
+                             depth=PREFETCH)
+        for Xd, yd, rows, shared, ev in self._waited(it):
             if ev is not None:
                 cur = torch.cuda.current_stream(self.device)
                 cur.wait_event(ev)
                 for t in (Xd, yd):
                     (t[0] if isinstance(t, tuple) else t).record_stream(cur)
-            yield Xd, yd, blen
+            yield Xd, yd, rows, shared
+
+    def _check_source(self, source):
+        if getattr(source, "mesh", None) is not self.mesh:
+            raise ValueError("the device-resident source and the trainer "
+                             "must be built on the same mesh")
 
     def _gathered(self, source, index_loader):
-        """Iterate (X_dev, y_dev, batch length) of a device-resident
-        source: each index batch's starts and flags are uploaded and
-        gathered into a batch on the device; the host time spent drawing
-        them is added to `loader_wait_s`."""
+        """Iterate (X_dev, y_dev, rows, False) of a device-resident
+        source: each index batch's starts and flags are uploaded and this
+        rank's rows gathered into a batch on the device; the host time
+        spent drawing them is added to `loader_wait_s`."""
+        self._check_source(source)
         for idx_batch in self._waited(iter(index_loader)):
-            yield (*source.gather(*idx_batch), len(idx_batch[0]))
+            X, y = source.gather(*idx_batch)
+            yield X, y, X.shape[0], False
+
+    def _data_sum(self, *values):
+        """Python numbers summed over the mesh's data axis (as they are
+        without a mesh), in float64."""
+        if self.mesh is None:
+            return values
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, group=self._data_group)
+        return t.tolist()
+
+    def _data_mean(self, tensors):
+        """The tensors averaged over the mesh's data axis, by one flat
+        all-reduce."""
+        flat = _flatten_dense_tensors(tensors)
+        dist.all_reduce(flat, group=self._data_group)
+        flat /= self._n_data
+        return _unflatten_dense_tensors(flat, tensors)
 
     def _waited(self, it):
         while True:
@@ -277,7 +349,7 @@ class Trainer:
         with NO update: parameters, BatchNorm statistics, Adam state and
         any accumulated gradient are left as they were. A parameter the
         loss does not reach (aux_out without aux_lambda) gets zeros."""
-        Xd, yd, _, ev = self._stage((X, y))
+        Xd, yd, _, _, ev = self._stage((X, y))
         if ev is not None:
             ev.synchronize()
         saved = {k: b.clone() for k, b in self.model.named_buffers()}
@@ -290,9 +362,17 @@ class Trainer:
             with torch.no_grad():
                 for k, b in self.model.named_buffers():
                     b.copy_(saved[k])
-        return float(loss.detach()), {
-            n: (g if g is not None else torch.zeros_like(p)).detach()
-            for n, p, g in zip(names, params, grads)}
+        loss = loss.detach()
+        grads = [(g if g is not None else torch.zeros_like(p)).detach()
+                 for p, g in zip(params, grads)]
+        if self.mesh is not None:
+            # the global batch's loss and gradients, shards made whole
+            loss, *grads = self._data_mean([loss.reshape(1), *grads])
+            shards = {id(getattr(o, a)): s
+                      for o, a, s in getattr(self.model, "_tp_leaves", ())}
+            grads = [shards[id(p)].whole(g) if id(p) in shards else g
+                     for p, g in zip(params, grads)]
+        return float(loss), dict(zip(names, grads))
 
     def train_epoch(self, loader) -> float:
         """One epoch; returns the dataset-mean per-sample loss (reference
@@ -311,7 +391,7 @@ class Trainer:
         self.model.train()
         self.loader_wait_s = 0.0
         sum_loss, n_samples, itr = None, 0, -1
-        for itr, (Xd, yd, blen) in enumerate(batches):
+        for itr, (Xd, yd, blen, _) in enumerate(batches):
             generator = self._generator()
             self._step_counter += 1
             loss = self._loss(Xd, yd, generator)
@@ -327,9 +407,17 @@ class Trainer:
             n_samples += blen
         if A > 1 and itr >= 0 and (itr + 1) % A != 0:
             self._apply()
-        return 0.0 if sum_loss is None else float(sum_loss) / n_samples
+        total, n = self._data_sum(
+            0.0 if sum_loss is None else float(sum_loss), n_samples)
+        return 0.0 if n == 0 else total / n
 
     def _apply(self):
+        if self.mesh is not None:
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            with torch.no_grad():
+                for g, m in zip(grads, self._data_mean(grads)):
+                    g.copy_(m)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
@@ -347,22 +435,31 @@ class Trainer:
         """Dataset-mean per-sample L1 of the eval prediction (`_predict`)
         against the target centre-cropped in time (reference
         train.py:122-130)."""
-        return self._validate(self._staged(loader))
+        return self._validate(self._staged(loader, whole_ok=True))
 
     def validate_epoch_device(self, source, batchsize: int) -> float:
         """`validate_epoch` over a `DeviceValidationSource`: the patches
         stay on the device; nothing is uploaded."""
-        return self._validate(source.batches(batchsize))
+        self._check_source(source)
+        return self._validate(
+            (self._rows(X, True), self._rows(y, True), self._local_count(n),
+             self._shared(n)) for X, y, n in source.batches(batchsize))
 
     @torch.no_grad()
     def _validate(self, batches) -> float:
+        """Sums the losses of this rank's rows, and apart those of shared
+        batches (every rank holds all of one), then the former over the
+        data axis."""
         self.model.eval()
-        sum_loss, n_samples = None, 0
-        for Xd, yd, blen in batches:
+        sums, counts = [None, None], [0, 0]  # own rows, shared batches
+        for Xd, yd, blen, shared in batches:
             pred, y = self._predict(self._upcast(Xd), self._upcast(yd))
             t = pred.shape[3]
             s = (y.shape[3] - t) // 2
             loss = losses.l1(pred, y[:, :, :, s:s + t]) * blen
-            sum_loss = loss if sum_loss is None else sum_loss + loss
-            n_samples += blen
-        return 0.0 if sum_loss is None else float(sum_loss) / n_samples
+            sums[shared] = loss if sums[shared] is None else sums[shared] + loss
+            counts[shared] += blen
+        own, shared = (0.0 if v is None else float(v) for v in sums)
+        total, n = self._data_sum(own, counts[0])
+        n += counts[1]
+        return 0.0 if n == 0 else (total + shared) / n
