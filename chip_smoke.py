@@ -109,7 +109,7 @@ Phases (each prints a line; any failure exits non-zero):
      backward share of the step (alone, and the step's wall with it
      replaced by its forward kernel and zero gradients), validation ms a
      patch, an epoch from the loader with the steps' wait on it, and one
-     profiled epoch (busy share, launches a step, top kernels). The rest
+     profiled step (busy share, launches, top kernels). The rest
      of training: the state of the first run's last epoch written as the
      JAX package's train_state.msgpack by the port's writer (seconds,
      size; read back, parameters equal to the .pt's bit for bit) and
@@ -133,6 +133,22 @@ Phases (each prints a line; any failure exits non-zero):
      complex CascadedNet(256, 128, 8, 16) with the wave term in float64
      card vs CPU (GRAD_RTOL), and the warm complex step without and with
      the wave term beside the magnitude step (ms, samples/s, peak);
+  7c'. library ([library], after [train], on its songs and caches): the
+     native host kernels (load_crop_abs at full width against numpy's
+     |z| / coef: the share of values that differ and ms a crop each way;
+     pcm16_encode / pcm16_decode round trip on [main]'s instruments stem;
+     quantize_u8 against the numpy quantizer byte for byte);
+     make_training_set / make_validation_set(progress=); one epoch of the
+     flagship through Loader(epoch_multiplier=2, drop_last=True,
+     prefetch=3) and Trainer(prefetch=3), then a fresh Trainer(prefetch=0)
+     from the same weights and seed (host batches bit for bit, losses
+     within LIB_LOSS_RTOL); validate_epoch on a ValidationSet (the
+     recurrence kernel 5 x chunks); DeviceLoader(drop_last=True) through
+     train_epoch_device (its step count; its first batch the host
+     loader's bit for bit); resize_bilinear(lerp2x=True) against the interp
+     matrix at the decoders' input shapes (RESIZE_TOL), hann_window(float64)
+     on the card; write_wav(subtype="FLOAT") read back exactly and
+     load(mono=True, dtype=float64);
   7d. tools ([tools]): one seeded 10 s pair through cli.evaluate with
      the flagship checkpoint (the device pipeline first and warm, then
      --postprocess --tta: wall, xRT, peak memory, the mean metrics) and
@@ -1068,7 +1084,6 @@ def phase_dir(tmp, ckpt, seed, counters, per_chunk):
     profiled("bf16", [], rec)
     run("flat bf16", ["--flat_conv"], ("lstm_recurrence", "flat_conv"))
     highest_dir, _ = run("highest", ["--precision", "highest"], rec)
-    profiled("highest", ["--precision", "highest"], rec)
 
     # songs 0-7 ran as one group of 8, 8 and 9 alone: each against the
     # same song alone
@@ -2001,6 +2016,23 @@ def train_pair(seconds: float, seed: int):
     return mix.astype(np.float32), inst.astype(np.float32)
 
 
+def write_train_songs(root, seed) -> str:
+    """TRAIN_SONGS seeded pairs as root/dataset/{mixtures,instruments}/
+    song<i>.wav; -> the dataset directory."""
+    from vocal_remover_tpu_torch.utils import audio
+
+    data = os.path.join(root, "dataset")
+    for sub in ("mixtures", "instruments"):
+        os.makedirs(os.path.join(data, sub))
+    for i in range(TRAIN_SONGS):
+        mix, inst = train_pair(TRAIN_SECONDS, seed + i)
+        audio.write_wav(os.path.join(data, "mixtures", f"song{i}.wav"),
+                        mix, SR)
+        audio.write_wav(os.path.join(data, "instruments", f"song{i}.wav"),
+                        inst, SR)
+    return data
+
+
 def run_train_cli(argv, counters, cwd):
     """One in-process run of the training CLI with every launch count
     reset just before and read just after; -> (wall s, {kernel:
@@ -2521,7 +2553,7 @@ def phase_train(tmp, seed, counters, smi):
     separates a 10 s song through the inference CLI; compute_grads in
     float64 and a full-width float32 train-mode loss, card vs CPU; then
     the step time, samples/s, validation ms a patch, peak memory, one
-    profiled epoch (busy share, top kernels), the plain recurrence's
+    profiled step (busy share, top kernels), the plain recurrence's
     share of the step (alone, and as the step's wall with and without it)
     and the step's wait on the loader.
     -> the recurrence's launches in the first CLI run (all validation)."""
@@ -2540,15 +2572,7 @@ def phase_train(tmp, seed, counters, smi):
     config.set_precision("highest")
     phase_t0 = time.perf_counter()
     root = os.path.join(tmp, "train")
-    data = os.path.join(root, "dataset")
-    for sub in ("mixtures", "instruments"):
-        os.makedirs(os.path.join(data, sub))
-    for i in range(TRAIN_SONGS):
-        mix, inst = train_pair(TRAIN_SECONDS, seed + i)
-        audio.write_wav(os.path.join(data, "mixtures", f"song{i}.wav"),
-                        mix, SR)
-        audio.write_wav(os.path.join(data, "instruments", f"song{i}.wav"),
-                        inst, SR)
+    data = write_train_songs(root, seed)
     out = os.path.join(root, "models")
     state = os.path.join(out, checkpoint.STATE_NAME)
     argv = ["-d", data, "--output_dir", out] + TRAIN_ARGS
@@ -2711,15 +2735,16 @@ def phase_train(tmp, seed, counters, smi):
         # the host ops' events would take longer to read than the epoch
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer.train_epoch(loader)
+            trainer.train_epoch(batches[:1])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy, by_name = kernel_summary(kernels)
     total = sum(t for t, _ in by_name.values())
-    print(f"[train] profiled epoch ({len(loader)} steps): {wall:.3f} s wall, "
-          f"{len(kernels)} kernel launches ({len(kernels) // len(loader)} a "
-          f"step), kernel time {total / 1e3:.1f} ms, device busy "
+    print(f"[train] profiled step (1 of the epoch's {len(loader)}, batch in "
+          f"memory): {wall:.3f} s wall, "
+          f"{len(kernels)} kernel launches, kernel time "
+          f"{total / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms = {100 * busy / 1e6 / wall:.1f}% of wall",
           flush=True)
     for kname, (t, n) in sorted(by_name.items(),
@@ -2738,6 +2763,332 @@ def phase_train(tmp, seed, counters, smi):
     print(f"[train] phase: {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
     return first_launches
+
+
+# the library slice ([library]): the keywords no CLI passes, at the
+# flagship's full width on [train]'s songs
+LIB_PATCHES = 3  # 3 train songs x 3 = 9 items
+LIB_MULT = 2  # epoch_multiplier: 18 samples, 4 batches of 4, 2 dropped
+LIB_PREFETCH = 3
+LIB_READS = 20  # crops timed each way
+# the loss of one epoch at prefetch 3 against a fresh trainer at prefetch
+# 0 (same initial weights, seed and batches): cuDNN's backward kernels
+# may sum in another order from run to run, and Adam turns a sign flip of
+# a near-zero gradient into a whole lr-sized step. Three H100 runs of the
+# 4-step epoch were 3.45e-6, 1.57e-5 and 1.27e-4 relative apart; the
+# tolerance leaves a factor of about 8 over the largest (the host batches
+# are held bit for bit apart from it)
+LIB_LOSS_RTOL = 1e-3
+# resize_bilinear's lerp against its interp matrix at an exact 2x, f32:
+# of the input's max |x|
+RESIZE_TOL = 1e-5
+
+
+def quantize_u8_numpy(a):
+    """The int8 staging quantizer in numpy (the port's before the native
+    one): 255 at the largest value from 0, multiplied by the float32
+    reciprocal of the scale, NaN to 0, rounded half to even."""
+    a = np.ascontiguousarray(a, np.float32)
+    hi = np.float32(np.max(a, initial=np.float32(0), where=a > 0))
+    scale = hi / np.float32(255) if hi > 0 else np.float32(1)
+    with np.errstate(invalid="ignore"):
+        s = a * (np.float32(1) / scale)
+    s = np.where(s > 0, s, np.float32(0))
+    return np.rint(np.minimum(s, np.float32(255))).astype(np.uint8), scale
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host ms of `fn()` over `reps` calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def library_host_kernels(tset, stems, batch):
+    """The native host kernels on the card's host: load_crop_abs at full
+    width against numpy's |z| / coef (share and ulp of the values that
+    differ, ms a crop each way), PCM16 round trip on [main]'s stems,
+    quantize_u8 against the numpy quantizer on a training batch."""
+    from vocal_remover_tpu_torch import native
+    from vocal_remover_tpu_torch.data import cache
+
+    X_path, _, coef = tset[0]
+    n_frames = cache.read_npy_shape(X_path)[0]
+    starts = np.random.default_rng(7).integers(0, n_frames - 256, LIB_READS)
+    it = iter(np.tile(starts, 2 * LIB_READS))
+
+    def c_read():
+        return native.load_crop_abs(X_path, int(next(it)), 256, coef)
+
+    def np_read():
+        rows = cache.read_npy_rows(X_path, int(next(it)), 256)
+        return (np.abs(rows.transpose(1, 2, 0)) / coef).astype(np.float32)
+
+    c_ms, np_ms = host_ms(c_read, LIB_READS), host_ms(np_read, LIB_READS)
+    differ = total = worst = 0
+    rel = 0.0
+    for st in starts:
+        got = native.load_crop_abs(X_path, int(st), 256, coef)
+        rows = cache.read_npy_rows(X_path, int(st), 256)
+        ref = (np.abs(rows.transpose(1, 2, 0)) / coef).astype(np.float32)
+        check(got.shape == (2, 1025, 256), f"load_crop_abs {got.shape}")
+        ulp = np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32))
+        differ += int((ulp > 0).sum())
+        total += got.size
+        worst = max(worst, int(ulp.max()))
+        nz = ref > 0
+        rel = max(rel, float((np.abs(got - ref)[nz] / ref[nz]).max()))
+    check(rel <= 1e-6, f"load_crop_abs vs numpy: {rel:.3g} relative")
+    print(f"[library] native load_crop_abs, (2, 1025, 256) crops of "
+          f"{os.path.basename(X_path)}: {100 * differ / total:.2f}% of "
+          f"{total} values differ from numpy's |z| / coef (at most {worst} "
+          f"ulp, {rel:.3g} relative, tol 1e-6); {c_ms:.3f} ms a crop "
+          f"native, {np_ms:.3f} ms numpy (read + |z| / coef; {LIB_READS} "
+          "crops each, warm file cache)", flush=True)
+
+    y, _ = stems
+    q = y.astype(np.int16)
+    dec = native.pcm16_decode(q)
+    check(np.array_equal(dec, q.astype(np.float32) / np.float32(32768))
+          and np.array_equal(native.pcm16_encode(dec), q),
+          "pcm16 round trip on [main]'s instruments stem")
+    enc_ms = host_ms(lambda: native.pcm16_encode(dec), 5)
+    dec_ms = host_ms(lambda: native.pcm16_decode(q), 5)
+    print(f"[library] native pcm16_encode / pcm16_decode: [main]'s "
+          f"instruments stem {q.shape} round trip exact; {enc_ms:.3f} / "
+          f"{dec_ms:.3f} ms", flush=True)
+
+    out = native.quantize_u8(batch)
+    want_q, want_scale = quantize_u8_numpy(batch)
+    check(np.array_equal(out["q"], want_q) and out["scale"] == want_scale,
+          "quantize_u8 differs from the numpy quantizer")
+    c_ms = host_ms(lambda: native.quantize_u8(batch), 5)
+    np_ms = host_ms(lambda: quantize_u8_numpy(batch), 5)
+    print(f"[library] native quantize_u8 on a training batch "
+          f"{batch.shape}: equal to the numpy quantizer byte for byte "
+          f"(scale {out['scale']:.6g}); {c_ms:.3f} ms native, {np_ms:.3f} "
+          "ms numpy", flush=True)
+
+
+def recorded(loader, out):
+    """Iterate `loader`, keeping a copy of every batch in `out`."""
+    for X, y in loader:
+        out.append((X.copy(), y.copy()))
+        yield X, y
+
+
+def decoder_inputs(model, X):
+    """{shape: tensor} of the inputs of `model`'s Decoders in one eval
+    forward of X (the 2x upsample's shapes)."""
+    from vocal_remover_tpu_torch.nn.layers import Decoder
+
+    seen = {}
+
+    def keep(_, inp):
+        seen.setdefault(tuple(inp[0].shape), inp[0].clone())
+
+    hooks = [m.register_forward_pre_hook(keep)
+             for m in model.modules() if isinstance(m, Decoder)]
+    try:
+        with torch.no_grad():
+            model.eval()(X)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_library(tmp, seed, counters, smi, stems):
+    """[library]: the library surface that no CLI reaches, on the card
+    at the flagship's full width, on [train]'s songs and caches: the
+    native host kernels; make_training_set(progress=), a Loader with
+    epoch_multiplier, drop_last and prefetch, one epoch of
+    Trainer(prefetch=LIB_PREFETCH) against a fresh Trainer(prefetch=0)
+    (host batches bit for bit, losses within LIB_LOSS_RTOL), validate_epoch
+    on a ValidationSet (the recurrence kernel 5 x chunks),
+    DeviceLoader(drop_last=True) through train_epoch_device;
+    resize_bilinear(lerp2x=) at the decoders' shapes, hann_window(dtype=)
+    on the card; write_wav(subtype="FLOAT") and load(mono=, dtype=) on
+    [main]'s instruments stem."""
+    from vocal_remover_tpu_torch.cli import train as train_cli
+    from vocal_remover_tpu_torch.data import cache, dataset, pairing
+    from vocal_remover_tpu_torch.data.device_cache import (
+        DeviceLoader,
+        DeviceTrainingSource,
+    )
+    from vocal_remover_tpu_torch.data.loader import Loader
+    from vocal_remover_tpu_torch.models.cascaded import CascadedNet
+    from vocal_remover_tpu_torch.nn import config
+    from vocal_remover_tpu_torch.ops import resize, stft
+    from vocal_remover_tpu_torch.train.step import Trainer
+    from vocal_remover_tpu_torch.utils import audio
+
+    phase_t0 = time.perf_counter()
+    config.set_precision("highest")
+    root = os.path.join(tmp, "library")
+    data = os.path.join(tmp, "train", "dataset")
+    cli_seed = train_cli.build_parser().get_default("seed")
+    random.seed(cli_seed)
+    train_files, val_files = pairing.train_val_split(data, "random", 0.25,
+                                                     [])
+    seen = []
+    t0 = time.perf_counter()
+    tset = cache.make_training_set(
+        train_files, SR, TRAIN_HOP, TRAIN_NFFT,
+        progress=lambda files: seen.extend(files) or files)
+    cache_s = time.perf_counter() - t0
+    check(seen == train_files and len(tset) == len(train_files),
+          f"make_training_set progress saw {seen}")
+    patches = dataset.make_validation_set(
+        val_files, 256, SR, TRAIN_HOP, TRAIN_NFFT, 64, patch_root=root,
+        progress=lambda files: seen.extend(files) or files)
+    check(seen == train_files + val_files, f"progress saw {seen}")
+    print(f"[library] make_training_set / make_validation_set(progress=) "
+          f"on [train]'s caches: {len(train_files)} + {len(val_files)} "
+          f"songs seen by the callbacks, {cache_s:.3f} s, "
+          f"{len(patches)} validation patches", flush=True)
+
+    ramp = train_cli.reduction_weight_ramp(TRAIN_NFFT, SR, 0.2)
+    tds = dataset.TrainingSet(tset * LIB_PATCHES, 256, 0.0, ramp, 0.0, 1.0,
+                              seed=cli_seed)
+    loader = Loader(tds, TRAIN_BATCH, shuffle=True, seed=cli_seed,
+                    epoch_multiplier=LIB_MULT, drop_last=True,
+                    prefetch=LIB_PREFETCH)
+    n = len(tds) * LIB_MULT
+    check(loader.num_samples == n and len(loader) == n // TRAIN_BATCH,
+          f"Loader: num_samples {loader.num_samples}, len {len(loader)}")
+
+    base = CascadedNet(TRAIN_NFFT, TRAIN_HOP, 32, 128,
+                       generator=torch.Generator().manual_seed(seed))
+    runs = {}
+    for prefetch in (LIB_PREFETCH, 0):
+        loader.set_epoch(0)
+        trainer = Trainer(copy.deepcopy(base), 1e-3, seed=cli_seed,
+                          prefetch=prefetch)
+        got = []
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_epoch(recorded(loader, got))
+        torch.cuda.synchronize()
+        runs[prefetch] = (loss, got, time.perf_counter() - t0,
+                          trainer.loader_wait_s,
+                          {k: w.launches for k, w in counters.items()})
+        if prefetch:
+            del trainer
+    (l3, b3, w3, wait3, n3), (l0, b0, w0, wait0, n0) = runs[LIB_PREFETCH], \
+        runs[0]
+    check(len(b3) == len(b0) == len(loader), f"epoch of {len(b3)} / "
+          f"{len(b0)} batches, want {len(loader)}")
+    check(all(np.array_equal(a, b) for p, q in zip(b3, b0)
+              for a, b in zip(p, q)), "prefetch changed the host batches")
+    gap = abs(l3 - l0) / abs(l0)
+    check(np.isfinite(l3) and gap <= LIB_LOSS_RTOL,
+          f"Trainer(prefetch={LIB_PREFETCH}) loss {l3} vs prefetch 0 {l0}")
+    check(not any(n3.values()) and not any(n0.values()),
+          f"the train step launched kernels: {n3}, {n0}")
+    print(f"[library] Loader(batchsize {TRAIN_BATCH}, shuffle, "
+          f"epoch_multiplier {LIB_MULT}, drop_last, prefetch "
+          f"{LIB_PREFETCH}) over {len(tds)} items: num_samples {n}, "
+          f"{len(loader)} batches (len checked); one epoch of the flagship "
+          f"at crop 256, highest: Trainer(prefetch={LIB_PREFETCH}) loss "
+          f"{l3:.8f} in {w3:.3f} s (waited {wait3:.3f} s), a fresh "
+          f"Trainer(prefetch=0) from the same weights and seed {l0:.8f} in "
+          f"{w0:.3f} s (waited {wait0:.3f} s): host batches equal bit for "
+          f"bit, losses {gap:.3g} apart (tol {LIB_LOSS_RTOL}); recurrence "
+          f"launches in the steps {n3['lstm_recurrence']}, "
+          f"{n0['lstm_recurrence']}; {smi}", flush=True)
+
+    library_host_kernels(tset, stems, b0[0][0])
+
+    chunks = -(-len(patches) // VAL_BATCH)
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    val = trainer.validate_epoch(Loader(dataset.ValidationSet(patches),
+                                        VAL_BATCH))
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    n_rec = counters["lstm_recurrence"].launches
+    check(np.isfinite(val) and n_rec == 5 * chunks,
+          f"validate_epoch: loss {val}, recurrence {n_rec}, want "
+          f"{5 * chunks}")
+    print(f"[library] validate_epoch on a ValidationSet of {len(patches)} "
+          f"patches (batch {VAL_BATCH}): loss {val:.8f}, {val_s:.3f} s, "
+          f"recurrence kernel {n_rec} launches = 5 x {chunks} chunks",
+          flush=True)
+
+    src = DeviceTrainingSource(tset * LIB_PATCHES, 256, reduction_weight=ramp,
+                               seed=cli_seed, dtype=torch.float32)
+    dl = DeviceLoader(src, TRAIN_BATCH, seed=cli_seed, drop_last=True)
+    host = Loader(tds, TRAIN_BATCH, shuffle=True, seed=cli_seed,
+                  drop_last=True)
+    check(len(dl) == len(host) == len(src) // TRAIN_BATCH,
+          f"DeviceLoader len {len(dl)}")
+    dl.set_epoch(1)
+    host.set_epoch(1)
+    Xd, yd = src.gather(*next(iter(dl)))
+    Xh, yh = next(iter(host))
+    check(np.array_equal(Xd.cpu().numpy(), Xh)
+          and np.array_equal(yd.cpu().numpy(), yh),
+          "DeviceLoader's first batch differs from the host loader's")
+    dl.set_epoch(0)
+    steps = trainer._step_counter
+    t0 = time.perf_counter()
+    loss = trainer.train_epoch_device(src, dl)
+    torch.cuda.synchronize()
+    steps = trainer._step_counter - steps
+    check(np.isfinite(loss) and steps == len(dl),
+          f"train_epoch_device: loss {loss}, {steps} steps, want {len(dl)}")
+    print(f"[library] DeviceLoader(drop_last=True) over {len(src)} items: "
+          f"{len(dl)} batches (len checked; the first equal to the host "
+          f"loader's bit for bit), train_epoch_device {steps} steps, loss "
+          f"{loss:.8f}, {time.perf_counter() - t0:.3f} s", flush=True)
+
+    X = torch.from_numpy(b0[0][0]).cuda()
+    worst = 0.0
+    shapes = decoder_inputs(trainer.model, X)
+    for shape, x in sorted(shapes.items()):
+        h, w = shape[2], shape[3]
+        lerp = resize.resize_bilinear(x, 2 * h, 2 * w, lerp2x=True)
+        mat = resize.resize_bilinear(x, 2 * h, 2 * w, lerp2x=False)
+        err = float((lerp - mat).abs().max() / x.abs().max())
+        worst = max(worst, err)
+    check(worst <= RESIZE_TOL, f"resize lerp vs matrix: {worst:.3g}")
+    n_shapes = len(shapes)
+    del X, shapes, trainer
+    n = TRAIN_NFFT
+    window = stft.hann_window(n, "cuda", dtype=torch.float64)
+    check(window.dtype == torch.float64 and window.is_cuda
+          and np.array_equal(window.cpu().numpy(), 0.5 - 0.5 * np.cos(
+              2.0 * np.pi * np.arange(n) / n)),
+          "hann_window(float64) on the card")
+    print(f"[library] resize_bilinear(lerp2x=True) vs lerp2x=False at the "
+          f"{n_shapes} decoder input shapes of the flagship at batch "
+          f"{TRAIN_BATCH}, crop 256 (f32, highest): max |diff| {worst:.3g} "
+          f"of max |x| (tol {RESIZE_TOL}); hann_window({n}, 'cuda', "
+          "float64) equal to numpy's float64 window", flush=True)
+
+    path = os.path.join(root, "instruments_float.wav")
+    inst = stems[0].astype(np.float32) / np.float32(32768)
+    audio.write_wav(path, inst, SR, subtype="FLOAT")
+    back, sr = audio.read_wav(path)
+    check(sr == SR and back.dtype == np.float32
+          and np.array_equal(back, inst), "FLOAT wav round trip")
+    mono, _ = audio.load(path, sr=SR, mono=True, dtype=np.float64)
+    check(mono.dtype == np.float64 and np.array_equal(
+        mono, back.mean(axis=0).astype(np.float64)), "load(mono=True)")
+    print(f"[library] write_wav(subtype='FLOAT') of [main]'s instruments "
+          f"stem {inst.shape}: read back exactly ({os.path.getsize(path)} "
+          "bytes); load(mono=True, dtype=float64) = the channel mean",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[library] phase: {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
 
 
 # the tools slice ([tools]): the dataset and evaluation CLIs on the
@@ -3362,6 +3713,9 @@ def main():
         mark("export")
         train_launches = phase_train(tmp, args.seed, counters, smi)
         mark("train")
+        phase_library(tmp, args.seed, counters, smi,
+                      results["stems"]["plain", "warm"])
+        mark("library")
         phase_parallel(tmp, ckpt, results, args.seed, smi)
         mark("parallel")
         phase_tools(tmp, ckpt, args.seed, counters, smi)

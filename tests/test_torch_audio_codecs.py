@@ -276,14 +276,15 @@ def test_write_flac_round_trip(tmp_path):
 
 def test_extension_lands_in_build_dir():
     """One module of its own name, in build/torch_native/ at the root of
-    the checkout, with the three decoders and none of the JAX package's
-    test hooks."""
+    the checkout, with the three decoders, the four host kernels
+    (native/host.c) and none of the JAX package's test hooks."""
     path = build.build()
     assert str(path.parent) == os.path.join(ROOT, "build", "torch_native")
     mod = build.load()
     assert mod.__name__ == "_vrtnative_torch" and mod.__file__ == str(path)
     assert sorted(n for n in dir(mod) if not n.startswith("_")) == [
-        "aac_decode", "flac_decode", "mp3_decode"]
+        "aac_decode", "flac_decode", "load_crop_abs", "mp3_decode",
+        "pcm16_decode", "pcm16_encode", "quantize_u8"]
 
 
 def test_edited_source_is_rebuilt(tmp_path, monkeypatch):

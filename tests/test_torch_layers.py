@@ -95,5 +95,5 @@ def test_lstm_module():
 def test_resize_bilinear(in_hw, out_hw):
     x = _x((2, *in_hw, 3))
     ref = jresize.resize_bilinear(x, *out_hw, lerp2x=False)
-    out = tresize.resize_bilinear(nchw(x), *out_hw)
+    out = tresize.resize_bilinear(nchw(x), *out_hw, lerp2x=False)
     np.testing.assert_allclose(nhwc(out), np.asarray(ref), atol=3e-5)

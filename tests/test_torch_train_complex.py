@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from vocal_remover_tpu import native as jnative
 from vocal_remover_tpu.data import cache as jcache
 from vocal_remover_tpu.data import dataset as jdataset
 from vocal_remover_tpu.data import pairing as jpairing
@@ -76,10 +75,8 @@ def _pairs(root, pkg):
     {},
     {"reduction_rate": 0.5, "mixup_rate": 0.5, "mono_rate": 0.5},
 ], ids=["no_aug", "reduction_mixup_mono"])
-def test_complex_training_items_are_byte_identical_to_jax(roots, aug,
-                                                          monkeypatch):
+def test_complex_training_items_are_byte_identical_to_jax(roots, aug):
     """(4, F, crop) float32 [real; imaginary] stacks, epochs 0 and 1."""
-    monkeypatch.setattr(jnative, "load_crop_abs", lambda *a, **k: None)
     jroot, root = roots
     jts = jcache.make_training_set(_pairs(jroot, jpairing), SR, HOP, N_FFT)
     tts = cache.make_training_set(_pairs(root, pairing), SR, HOP, N_FFT)

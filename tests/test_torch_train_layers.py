@@ -132,7 +132,7 @@ def test_lerp_upsample_matches_jax_forward_and_gradient(h, w):
                                ref_grad, atol=1e-5)
     # the eval form is the same grid, and differentiable too
     xm = xt.detach().clone().requires_grad_()
-    outm = tresize.upsample2x(xm)
+    outm = tresize.upsample2x(xm, lerp=False)
     (outm * gt).sum().backward()
     torch.testing.assert_close(outm, out.detach(), atol=1e-6, rtol=0)
     torch.testing.assert_close(xm.grad, xt.grad, atol=1e-5, rtol=0)

@@ -64,11 +64,13 @@ def cache_or_load(mix_path: str, inst_path: str, sr: int, hop_length: int,
     return X, y, mix_cache_path, inst_cache_path
 
 
-def make_training_set(filelist, sr, hop_length, n_fft):
+def make_training_set(filelist, sr, hop_length, n_fft,
+                      progress=lambda it: it):
     """[(X_cache_path, y_cache_path, normalization_coef)] per song
-    (reference lib/dataset.py:208-217)."""
+    (reference lib/dataset.py:208-217). `progress` wraps the file list
+    (a progress bar, tqdm-style)."""
     ret = []
-    for X_path, y_path in filelist:
+    for X_path, y_path in progress(filelist):
         X, y, X_cache_path, y_cache_path = cache_or_load(
             X_path, y_path, sr, hop_length, n_fft
         )

@@ -8,7 +8,8 @@ probabilities/distributions, reorganized as plain-Python
 samplers (no torch DataLoader): a `Loader` (loader.py) drives them with
 worker threads and feeds the training step (train/step.py). Items are
 magnitudes, or for complex-mask training (`is_complex`) the real and
-imaginary parts stacked as channels.
+imaginary parts stacked as channels (or the complex crops, with
+`complex_as_channels=False`).
 
 Randomness is derived per item: every `__getitem__(idx)` builds its own
 `np.random.Generator` seeded from (seed, epoch, idx). This makes the
@@ -22,16 +23,20 @@ from __future__ import annotations
 
 import numpy as np
 
+from vocal_remover_tpu_torch import native
 from vocal_remover_tpu_torch.data import cache
 from vocal_remover_tpu_torch.ops.windowing import make_padding
 
 __all__ = ["TrainingSet", "ValidationSet", "make_validation_set"]
 
 
-def _item(X, y, is_complex):
+def _item(X, y, is_complex, complex_as_channels=True):
     """Complex (2, F, T) crops -> float32 magnitudes, or with
-    `is_complex` (4, F, T) float32 [real; imaginary] channel stacks."""
+    `is_complex` (4, F, T) float32 [real; imaginary] channel stacks (the
+    complex crops as they are without `complex_as_channels`)."""
     if is_complex:
+        if not complex_as_channels:
+            return X, y
         return (np.concatenate([X.real, X.imag]).astype(np.float32),
                 np.concatenate([y.real, y.imag]).astype(np.float32))
     return np.abs(X).astype(np.float32), np.abs(y).astype(np.float32)
@@ -42,12 +47,14 @@ class TrainingSet:
 
     Items are (X_mag, y_mag) float32 arrays of shape (2, F, cropsize)
     (reference lib/dataset.py:104-119); with `is_complex`, (4, F,
-    cropsize) float32 re/im channel stacks (real parts first).
+    cropsize) float32 re/im channel stacks (real parts first), or with
+    `complex_as_channels=False` the (2, F, cropsize) complex crops.
     """
 
     def __init__(self, training_set, cropsize, reduction_rate,
                  reduction_weight, mixup_rate, mixup_alpha, seed=0,
-                 is_complex=False, mono_rate=0.0):
+                 is_complex=False, mono_rate=0.0,
+                 complex_as_channels=True):
         self.training_set = training_set
         self.cropsize = cropsize
         self.reduction_rate = reduction_rate
@@ -55,6 +62,7 @@ class TrainingSet:
         self.mixup_rate = mixup_rate
         self.mixup_alpha = mixup_alpha
         self.is_complex = is_complex
+        self.complex_as_channels = complex_as_channels
         # mono-mix augmentation: dormant in the reference (commented out
         # at lib/dataset.py:81-83); carried here as a real option
         self.mono_rate = mono_rate
@@ -136,17 +144,16 @@ class TrainingSet:
 
     def _magnitude_fast_path(self, idx, rng):
         """Magnitude items with no complex-valued augs pending: |z| / coef
-        of the crop as float32 right after the read, with the SAME rng
-        draw order as the general path (the JAX package's numpy branch;
-        its fused C read, native/vrtnative.c, gives the same items)."""
+        of the crop as float32 in the read, by the native kernel (native
+        `load_crop_abs`, the JAX package's fused C read, whose bits differ
+        from numpy's |z| / coef by a few ulp in a third to a half of the
+        values), with the SAME rng draw order as the general path."""
         X_path, y_path, coef = self.training_set[idx % len(self.training_set)]
         n_frames = cache.read_npy_shape(X_path)[0]
         start, n_rows = self._crop_window(n_frames, rng)
 
-        Xc = cache.read_npy_rows(X_path, start, n_rows)
-        yc = cache.read_npy_rows(y_path, start, n_rows)
-        X = (np.abs(Xc.transpose(1, 2, 0)) / coef).astype(np.float32)
-        y = (np.abs(yc.transpose(1, 2, 0)) / coef).astype(np.float32)
+        X = native.load_crop_abs(X_path, start, n_rows, coef)
+        y = native.load_crop_abs(y_path, start, n_rows, coef)
         if n_rows < self.cropsize:
             pad = ((0, 0), (0, 0), (0, self.cropsize - n_rows))
             X = np.pad(X, pad)
@@ -178,30 +185,34 @@ class TrainingSet:
         X, y = self.do_aug(X, y, rng)
         if rng.uniform() < self.mixup_rate:
             X, y = self.do_mixup(X, y, rng)
-        return _item(X, y, self.is_complex)
+        return _item(X, y, self.is_complex, self.complex_as_channels)
 
 
 class ValidationSet:
     """Fixed validation windows persisted as .npz patches
     (reference lib/dataset.py:123-141)."""
 
-    def __init__(self, patch_list, is_complex=False):
+    def __init__(self, patch_list, is_complex=False,
+                 complex_as_channels=True):
         self.patch_list = patch_list
         self.is_complex = is_complex
+        self.complex_as_channels = complex_as_channels
 
     def __len__(self):
         return len(self.patch_list)
 
     def __getitem__(self, idx):
         data = np.load(self.patch_list[idx])
-        return _item(data["X"], data["y"], self.is_complex)
+        return _item(data["X"], data["y"], self.is_complex,
+                     self.complex_as_channels)
 
 
 def make_validation_set(filelist, cropsize, sr, hop_length, n_fft, offset,
-                        patch_root="."):
+                        patch_root=".", progress=lambda it: it):
     """Persist per-song fixed windows to
     `cs{}_sr{}_hl{}_nf{}_of{}/` .npz files (reference
-    lib/dataset.py:220-248); returns the patch path list."""
+    lib/dataset.py:220-248); returns the patch path list. `progress`
+    wraps the file list (a progress bar, tqdm-style)."""
     import os
 
     patch_list = []
@@ -212,7 +223,7 @@ def make_validation_set(filelist, cropsize, sr, hop_length, n_fft, offset,
     )
     os.makedirs(patch_dir, exist_ok=True)
 
-    for X_path, y_path in filelist:
+    for X_path, y_path in progress(filelist):
         basename = os.path.splitext(os.path.basename(X_path))[0]
         X, y, _, _ = cache.cache_or_load(X_path, y_path, sr, hop_length, n_fft)
         coef = np.max([np.abs(X).max(), np.abs(y).max()])

@@ -17,8 +17,9 @@ the device.
   * The randomness is TrainingSet's: the same (seed, epoch, idx) streams
     in the same draw order, and `DeviceLoader` shares `Loader`'s
     shuffle. Resident magnitudes are made by the host fast path's
-    expression, so at float32 a device batch equals the host path's
-    batch bit for bit, and toggling the cache never changes a run.
+    kernel (native `load_crop_abs`), so at float32 a device batch
+    equals the host path's batch bit for bit, and toggling the cache
+    never changes a run.
   * In bf16 residency the gather casts to float32 before any arithmetic.
   * With a `mesh` (parallel/mesh.py) the resident arrays sit on every
     rank's card; every rank draws the same index batch, and `gather`
@@ -31,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vocal_remover_tpu_torch import resolve_device
+from vocal_remover_tpu_torch import native, resolve_device
 from vocal_remover_tpu_torch.data import cache
 from vocal_remover_tpu_torch.data.loader import Loader
 from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
@@ -240,10 +241,11 @@ class DeviceTrainingSource:
 
 def _magnitudes(path: str, coef) -> np.ndarray:
     """A cached (T, 2, F) complex spectrogram -> (2, F, T) float32 |z| /
-    coef, by the host fast path's expression (TrainingSet
-    `_magnitude_fast_path`), so resident values equal its crops."""
-    rows = cache.read_npy_rows(path, 0, cache.read_npy_shape(path)[0])
-    return (np.abs(rows.transpose(1, 2, 0)) / coef).astype(np.float32)
+    coef, by the host fast path's kernel (native `load_crop_abs`, as
+    TrainingSet `_magnitude_fast_path`), so resident values equal its
+    crops."""
+    return native.load_crop_abs(path, 0, cache.read_npy_shape(path)[0],
+                                coef)
 
 
 class DeviceValidationSource:
@@ -284,11 +286,13 @@ class DeviceValidationSource:
 
 class DeviceLoader(Loader):
     """Epoch iterator over a DeviceTrainingSource: yields its
-    `index_batch`es in `Loader`'s order (the same shuffle, and
-    `set_epoch` for resume)."""
+    `index_batch`es in `Loader`'s order (the same shuffle, `drop_last`
+    and `set_epoch` for resume), over the source's length."""
 
-    def __init__(self, source, batchsize, shuffle=True, seed=0):
-        super().__init__(source, batchsize, shuffle=shuffle, seed=seed)
+    def __init__(self, source, batchsize, shuffle=True, seed=0,
+                 drop_last=False):
+        super().__init__(source, batchsize, shuffle=shuffle, seed=seed,
+                         drop_last=drop_last)
 
     def __iter__(self):
         epoch = self._epoch

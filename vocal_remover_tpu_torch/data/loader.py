@@ -17,17 +17,24 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-PREFETCH = 2  # batches stacked ahead of the consumer
-
 
 class Loader:
+    """Batches of `dataset` items over `num_samples` = len(dataset) *
+    `epoch_multiplier` indices (the dataset takes idx % its length),
+    shuffled per epoch with `shuffle`; `drop_last` drops a short last
+    batch. `prefetch` batches are stacked ahead of the consumer (0: no
+    bound), as the JAX package's queue."""
+
     def __init__(self, dataset, batchsize, shuffle=False, num_workers=4,
-                 seed=0):
+                 seed=0, epoch_multiplier=1, drop_last=False, prefetch=2):
         self.dataset = dataset
         self.batchsize = batchsize
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.epoch_multiplier = epoch_multiplier
+        self.drop_last = drop_last
+        self.prefetch = prefetch
         self._epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -37,18 +44,27 @@ class Loader:
         exact stream an uninterrupted run would have produced."""
         self._epoch = int(epoch)
 
+    @property
+    def num_samples(self):
+        return len(self.dataset) * self.epoch_multiplier
+
     def __len__(self):
-        return -(-len(self.dataset) // self.batchsize)
+        if self.drop_last:
+            return self.num_samples // self.batchsize
+        return -(-self.num_samples // self.batchsize)
 
     def _batches(self, epoch: int):
-        n = len(self.dataset)
+        n = self.num_samples
         order = np.arange(n)
         if self.shuffle:
             # per-epoch derived rng (not sequential generator state) so
             # set_epoch(e) reproduces epoch e's order exactly
             np.random.default_rng((0x0BD5, self.seed, epoch)).shuffle(order)
         for i in range(0, n, self.batchsize):
-            yield order[i : i + self.batchsize]
+            b = order[i : i + self.batchsize]
+            if self.drop_last and len(b) < self.batchsize:
+                return
+            yield b
 
     def __iter__(self):
         # advance the dataset's per-item RNG stream: epoch e draws are a
@@ -59,7 +75,7 @@ class Loader:
             self.dataset.set_epoch(epoch)
         self._epoch += 1
 
-        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def produce():

@@ -1,7 +1,9 @@
-"""Build the port's native audio decoders and load them.
+"""Build the port's native extension (audio decoders, host kernels) and
+load it.
 
 The C sources beside this file (decoders.c, the module; flacdec.c,
-mp3dec.c, aacdec.c, sbrdec.c) are compiled by the C compiler (`$CC`,
+mp3dec.c, aacdec.c, sbrdec.c, the decoders; host.c, the training crops'
+magnitudes, PCM16 and uint8 staging) are compiled by the C compiler (`$CC`,
 else `cc` on PATH) at first use into one CPython extension in
 `build/torch_native/` at the root of the checkout (listed in
 .gitignore). Its name carries a hash of the sources, headers, flags,
@@ -28,10 +30,12 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
-SOURCES = ("decoders.c", "flacdec.c", "mp3dec.c", "aacdec.c", "sbrdec.c")
+SOURCES = ("decoders.c", "flacdec.c", "mp3dec.c", "aacdec.c", "sbrdec.c",
+           "host.c")
 HEADERS = ("sbrdec.h", "sbr_tables.h")
 MODULE = "_vrtnative_torch"
-# the JAX package's flags: the same code generation, the same samples
+# the JAX package's flags: the same code generation, the same samples and
+# magnitudes
 CFLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _mod = None
@@ -42,13 +46,12 @@ def compiler() -> str:
     cc = os.environ.get("CC") or shutil.which("cc")
     if not cc:
         raise RuntimeError("no C compiler: set CC or put cc on PATH to "
-                           "build the audio decoders")
+                           "build the native extension")
     return cc
 
 
 def build() -> Path:
-    """Compile the decoders (if not built yet); -> the extension's
-    path."""
+    """Compile the extension (if not built yet); -> its path."""
     cc = compiler()
     include = sysconfig.get_paths()["include"]
     digest = hashlib.sha256(" ".join(
@@ -67,7 +70,7 @@ def build() -> Path:
             [cc, *CFLAGS, "-o", tmp, *(str(SRC_DIR / s) for s in SOURCES),
              f"-I{include}", "-lm"], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"{cc} failed building the audio decoders "
+            raise RuntimeError(f"{cc} failed building the native extension "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     finally:

@@ -242,7 +242,7 @@ class ASPPModule(nn.Module):
     def forward(self, x, generator=None):
         h, w = x.shape[2], x.shape[3]
         pooled = x.mean(dim=2, keepdim=True)
-        feat1 = resize_bilinear(self.conv1[1](pooled), h, w)
+        feat1 = resize_bilinear(self.conv1[1](pooled), h, w, lerp2x=False)
         out = torch.cat([feat1, self.conv2(x), self.conv3(x), self.conv4(x),
                          self.conv5(x)], dim=1)
         out = self.bottleneck(out)

@@ -1,14 +1,17 @@
 """Bilinear resampling with PyTorch `align_corners=True` semantics.
 
-Counterpart of vocal_remover_tpu/ops/resize.py. In eval each axis is
-resized by a row-stochastic two-taps-per-row interpolation matrix as a
-dense matrix product (frequency first, then time), and a 1 -> n resize
-(ASPP's frequency-pooled branch) is a broadcast. Training's exact 2x
-upsample (`upsample2x(x, lerp=True)`, the Decoders in train mode) is the
-JAX package's phase-split lerp: out[2k] = a[k] x[k-1] + (1 - a[k]) x[k],
-out[2k+1] = b[k] x[k] + (1 - b[k]) x[k+1] (edges clamped), with
-a[k] = k / (2h-1), b[k] = (h+k) / (2h-1). Both forms are the same grid;
-the gradient flows through both.
+Counterpart of vocal_remover_tpu/ops/resize.py. An axis is resized by a
+row-stochastic two-taps-per-row interpolation matrix as a dense matrix
+product (frequency first, then time), and a 1 -> n resize (ASPP's
+frequency-pooled branch) is a broadcast. With `lerp2x` (the default, as
+in JAX) an exact 2x axis takes the JAX package's phase-split lerp
+instead: out[2k] = a[k] x[k-1] + (1 - a[k]) x[k], out[2k+1] = b[k] x[k]
++ (1 - b[k]) x[k+1] (edges clamped), with a[k] = k / (2h-1), b[k] =
+(h+k) / (2h-1). Both forms are the same grid; the gradient flows through
+both. The model passes the flag at every call site: the Decoders' 2x
+upsample lerps in training only (`upsample2x(x, lerp=self.training)`),
+so the eval forward keeps the matrix form, and ASPP's re-expand is a
+broadcast.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["interp_matrix", "upsample2x", "resize_bilinear"]
+__all__ = ["interp_matrix", "interp_taps", "upsample2x", "resize_bilinear"]
 
 
 @functools.lru_cache(maxsize=128)
@@ -35,6 +38,19 @@ def interp_matrix(n_in: int, n_out: int) -> np.ndarray:
     A[np.arange(n_out), i0] = (1.0 - w).astype(np.float32)
     A[np.arange(n_out), i0 + 1] += w.astype(np.float32)
     return A
+
+
+@functools.lru_cache(maxsize=128)
+def interp_taps(n_in: int, n_out: int):
+    """(i0, i1, w) tap tables for align_corners=True interpolation:
+    out[j] = in[i0[j]] * (1 - w[j]) + in[i1[j]] * w[j]."""
+    if n_in == 1 or n_out == 1:
+        z = np.zeros(n_out, np.int32)
+        return z, z, np.zeros(n_out, np.float32)
+    src = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+    i0 = np.clip(np.floor(src).astype(np.int32), 0, n_in - 2)
+    w = (src - i0).astype(np.float32)
+    return i0, (i0 + 1).astype(np.int32), w
 
 
 def _matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype):
@@ -98,25 +114,26 @@ def _up2x_axis(x, dim: int):
     return y.reshape(out_shape)
 
 
-def resize_bilinear(x, out_h: int, out_w: int):
-    """Resize NCHW `x` to (out_h, out_w) with align_corners=True."""
-    h, w = x.shape[2], x.shape[3]
-    if h != out_h:
-        if h == 1:
-            x = x.expand(-1, -1, out_h, -1)
-        else:
-            x = torch.matmul(_matrix(h, out_h, x.device, x.dtype), x)
-    if w != out_w:
-        if w == 1:
-            x = x.expand(-1, -1, -1, out_w)
-        else:
-            x = torch.matmul(x, _matrix(w, out_w, x.device, x.dtype).t())
-    return x
+def _resize_axis(x, dim: int, n_out: int, lerp2x: bool):
+    n = x.shape[dim]
+    if n == n_out:
+        return x
+    if lerp2x and n_out == 2 * n:
+        return _up2x_axis(x, dim)
+    if n == 1:
+        return x.expand(*x.shape[:dim], n_out, *x.shape[dim + 1:])
+    m = _matrix(n, n_out, x.device, x.dtype)
+    return torch.matmul(m, x) if dim == 2 else torch.matmul(x, m.t())
 
 
-def upsample2x(x, lerp: bool = False):
-    """2x bilinear upsample of NCHW `x` (align_corners=True): the interp
-    matrices, or with `lerp` the phase-split lerp (training)."""
-    if lerp:
-        return _up2x_axis(_up2x_axis(x, 2), 3)
-    return resize_bilinear(x, 2 * x.shape[2], 2 * x.shape[3])
+def resize_bilinear(x, out_h: int, out_w: int, lerp2x: bool = True):
+    """Resize NCHW `x` to (out_h, out_w) with align_corners=True: an
+    exact 2x axis by the phase-split lerp with `lerp2x`, any other ratio
+    (and every axis without it) by the interp matrix."""
+    return _resize_axis(_resize_axis(x, 2, out_h, lerp2x), 3, out_w, lerp2x)
+
+
+def upsample2x(x, lerp: bool = True):
+    """2x bilinear upsample of NCHW `x` (align_corners=True): the
+    phase-split lerp, or without `lerp` the interp matrices (eval)."""
+    return resize_bilinear(x, 2 * x.shape[2], 2 * x.shape[3], lerp2x=lerp)

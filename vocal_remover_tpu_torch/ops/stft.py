@@ -20,8 +20,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["hann_window", "num_frames", "frame_spectrum", "stft",
-           "overlap_add", "istft", "stft_np", "istft_np"]
+__all__ = ["hann_window", "num_frames", "istft_length", "frame_spectrum",
+           "stft", "overlap_add", "istft", "stft_np", "istft_np"]
 
 
 def _hann_np(n_fft: int) -> np.ndarray:
@@ -30,15 +30,21 @@ def _hann_np(n_fft: int) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / n_fft)
 
 
-def hann_window(n_fft: int, device=None) -> torch.Tensor:
-    """Periodic Hann window (float32), computed in float64 as the JAX
-    package does."""
-    return torch.from_numpy(_hann_np(n_fft).astype(np.float32)).to(device)
+def hann_window(n_fft: int, device=None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Periodic Hann window in `dtype` on `device`, computed in float64
+    as the JAX package does."""
+    return torch.from_numpy(_hann_np(n_fft)).to(device, dtype)
 
 
 def num_frames(length: int, n_fft: int, hop_length: int) -> int:
     """Number of STFT frames for a centred transform of `length` samples."""
     return 1 + (length + 2 * (n_fft // 2) - n_fft) // hop_length
+
+
+def istft_length(n_frames: int, n_fft: int, hop_length: int) -> int:
+    """Output length of a centred iSTFT (librosa's default, length=None)."""
+    return n_fft + hop_length * (n_frames - 1) - 2 * (n_fft // 2)
 
 
 def frame_spectrum(x, n_fft: int, hop_length: int):

@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from vocal_remover_tpu_torch import resolve_device
+from vocal_remover_tpu_torch.native import pcm16_encode
 from vocal_remover_tpu_torch.nn import config
 from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
 from vocal_remover_tpu_torch.ops.stft import istft, num_frames, stft
@@ -54,7 +55,6 @@ from vocal_remover_tpu_torch.ops.windowing import (
     num_patches,
     stitch_masks,
 )
-from vocal_remover_tpu_torch.utils.audio import pcm16_encode
 from vocal_remover_tpu_torch.utils.spec import merge_artifacts
 
 
@@ -70,12 +70,14 @@ def _lexmax_abs(re, im):
 
 
 def host_wave(wave, pcm16_io: bool) -> np.ndarray:
-    """A host wave as the separation takes it, C-contiguous: int16 PCM
-    with `pcm16_io` (a float wave is quantised here), else float32."""
-    if pcm16_io:
-        return np.ascontiguousarray(
-            wave if wave.dtype == np.int16 else pcm16_encode(wave))
-    return np.ascontiguousarray(wave, np.float32)
+    """A host wave as the separation takes it, C-contiguous and writable
+    (torch.from_numpy takes it): int16 PCM with `pcm16_io` (a float wave
+    is quantised here by the native encoder, as in the JAX package),
+    else float32."""
+    if pcm16_io and wave.dtype != np.int16:
+        wave = pcm16_encode(wave)
+    return np.require(wave, np.int16 if pcm16_io else np.float32,
+                      ("C", "W"))
 
 
 def to_i16(w):

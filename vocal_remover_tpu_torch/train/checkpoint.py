@@ -52,7 +52,11 @@ def _is_flax(path: str) -> bool:
 
 
 def save_train_state(path: str, trainer, scheduler, epoch: int,
-                     best_loss: float):
+                     best_loss: float, extra: dict | None = None):
+    """Write the trainer's and scheduler's state to `path` (a `.msgpack`
+    path: the JAX package's layout) and its meta (epoch, best loss, step
+    counter, scheduler, `extra`) to `path + ".meta.json"`; under a mesh
+    every rank enters and rank 0 writes."""
     with policy.unsharded(trainer.model, trainer.optimizer):
         if not distributed.is_writer():
             return
@@ -68,7 +72,7 @@ def save_train_state(path: str, trainer, scheduler, epoch: int,
         "best_loss": best_loss,
         "step_counter": trainer._step_counter,
         "scheduler": scheduler.state_dict(),
-        "extra": {},  # kept: the JAX package's .meta.json has the key
+        "extra": extra or {},
     }
     _atomic_write(path, blob)
     _atomic_write(path + ".meta.json", json.dumps(meta).encode())

@@ -27,7 +27,8 @@ validation on the offset-trimmed masked spectrogram.
     (`CascadedNet.forward(remat=True)`): less activation memory held for
     the backward, for one more forward of the band nets; the same
     gradients and statistics.
-  * Batches are staged host -> device by a background thread, from
+  * Batches are staged host -> device by a background thread
+    (`prefetch` batches ahead; 0: no thread), from
     pinned memory on a side stream, in `transfer_dtype` (None: as the
     loader gives them; "int8": `quantize_u8` on the host, a uint8 tensor
     and a float32 scale, magnitudes only), and cast up to float32 (or
@@ -63,32 +64,20 @@ import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from vocal_remover_tpu_torch import resolve_device
+from vocal_remover_tpu_torch import native, resolve_device
 from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
 from vocal_remover_tpu_torch.parallel import policy
 from vocal_remover_tpu_torch.train import losses
 from vocal_remover_tpu_torch.train.prefetch import device_prefetch
 
-# batches staged ahead of the step by the staging thread
-PREFETCH = 2
-
 
 def quantize_u8(a):
     """float32 magnitudes -> (uint8 array, float32 scale) with 255 at
-    the batch's largest value; the device computes q * scale. Byte for
-    byte the JAX package's C quantizer (vrtnative.c `quantize_u8`), which
-    its `Trainer._quantize_u8` runs where the extension is built: the
-    max is taken from 0 (NaN and negative values do not count), values
-    are multiplied by the float32 reciprocal of the scale, clamped to
-    [0, 255] (NaN to 0) and rounded half to even."""
-    a = np.ascontiguousarray(a, np.float32)
-    hi = np.float32(np.max(a, initial=np.float32(0), where=a > 0))
-    scale = hi / np.float32(255) if hi > 0 else np.float32(1)
-    with np.errstate(invalid="ignore"):  # inf * 0: NaN, then 0 below
-        s = a * (np.float32(1) / scale)
-    s = np.where(s > 0, s, np.float32(0))  # also NaN -> 0
-    q = np.rint(np.minimum(s, np.float32(255))).astype(np.uint8)
-    return q, np.float32(scale)
+    the batch's largest value; the device computes q * scale. The native
+    quantizer (native `quantize_u8`), as the JAX package's
+    `Trainer._quantize_u8` runs it where its extension is built."""
+    out = native.quantize_u8(a)
+    return out["q"], out["scale"]
 
 
 def _complex_product(mask, X):
@@ -111,14 +100,17 @@ class Trainer:
     def __init__(self, model, learning_rate, accumulation_steps=1, seed=0,
                  dropout=True, transfer_dtype=None, aux_lambda=0.0,
                  remat=False, wave_loss=None, wave_loss_weight=0.01,
-                 device=None, mesh=None):
+                 device=None, mesh=None, prefetch=2):
         """Trains `model` (a CascadedNet) in place, on `device` (None:
         the card; "cpu" when asked). A model with the serving transforms
         applied (models/serving.py: folded BatchNorm, bf16 weights,
         packed encoders) is refused: it is for inference only.
         `transfer_dtype` is None, a torch dtype, or "int8". `mesh`: a
         (data, model) DeviceMesh (parallel/mesh.make_mesh) whose device
-        type is `device`'s; every rank passes the same model."""
+        type is `device`'s; every rank passes the same model. `prefetch`:
+        batches staged ahead by the staging thread (0: no thread, each
+        batch staged when the step asks for it); the batches and losses
+        do not depend on it."""
         if getattr(model, "serving_transformed", False):
             raise ValueError(
                 "this model has the serving transforms applied (folded "
@@ -152,6 +144,7 @@ class Trainer:
         self.seed = int(seed)
         self.dropout = dropout
         self.transfer_dtype = transfer_dtype
+        self.prefetch = int(prefetch)
         self.aux_lambda = float(aux_lambda)
         self.remat = bool(remat)
         self.wave_loss = wave_loss
@@ -238,8 +231,9 @@ class Trainer:
         the scale that of the global batch, as in JAX."""
         if self.transfer_dtype == "int8":
             q, scale = quantize_u8(a)
-            return (self._to_device(torch.from_numpy(self._rows(q, whole_ok))),
-                    float(scale))
+            # the native result is read-only: torch takes a writable copy
+            q = np.require(self._rows(q, whole_ok), requirements="W")
+            return self._to_device(torch.from_numpy(q)), float(scale)
         t = torch.from_numpy(np.ascontiguousarray(self._rows(a, whole_ok)))
         if self.transfer_dtype is not None:
             t = t.to(self.transfer_dtype)
@@ -276,12 +270,13 @@ class Trainer:
         return Xd, yd, rows, shared, ev
 
     def _staged(self, loader, whole_ok=False):
-        """Iterate (X_dev, y_dev, rows, shared), staged PREFETCH batches
-        ahead on a background thread; the time spent waiting for each is
-        added to `loader_wait_s`."""
-        it = device_prefetch(iter(loader),
-                             lambda b: self._stage(b, whole_ok),
-                             depth=PREFETCH)
+        """Iterate (X_dev, y_dev, rows, shared), staged `prefetch` batches
+        ahead on a background thread (in the caller's with 0, JAX
+        `_staged`); the time spent waiting for each is added to
+        `loader_wait_s`."""
+        stage = lambda b: self._stage(b, whole_ok)  # noqa: E731
+        it = (device_prefetch(iter(loader), stage, depth=self.prefetch)
+              if self.prefetch > 0 else map(stage, loader))
         for Xd, yd, rows, shared, ev in self._waited(it):
             if ev is not None:
                 cur = torch.cuda.current_stream(self.device)

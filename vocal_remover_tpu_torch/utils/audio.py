@@ -1,17 +1,19 @@
 """Audio I/O, resampling and PCM16 encoding (numpy/scipy).
 
-The port's own counterpart of vocal_remover_tpu/utils/audio.py and
-native `pcm16_encode`: WAV decode (PCM 8/16/24/32, float32/float64),
-FLAC, MP3 and AAC (AAC-LC and HE-AAC in .m4a / .mp4 / raw .aac ADTS)
-through the port's native decoders (native/), ffmpeg (when on PATH)
-for a stream they reject or when they fail to build, WAV encode as
-16-bit PCM (soundfile's WAV default, what the reference writes), and
-band-limited sinc resampling with the reference's `kaiser_fast`
-(utils/resample.py). Waves are float32, channel-first (C, L).
+The port's own counterpart of vocal_remover_tpu/utils/audio.py: WAV
+decode (PCM 8/16/24/32, float32/float64), FLAC, MP3 and AAC (AAC-LC and
+HE-AAC in .m4a / .mp4 / raw .aac ADTS) through the port's native
+decoders (native/), ffmpeg (when on PATH) for a stream they reject or
+when they fail to build, WAV encode as 16-bit PCM (soundfile's WAV
+default, what the reference writes; the native `pcm16_encode`) or
+float32, and band-limited sinc resampling with the reference's
+`kaiser_fast` (utils/resample.py; also `kaiser_best`, and scipy's
+polyphase filter). Waves are float32, channel-first (C, L).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import subprocess
@@ -20,18 +22,18 @@ import wave as _wave
 
 import numpy as np
 from scipy.io import wavfile
+from scipy.signal import resample_poly
 
-__all__ = ["load", "read_wav", "read_flac", "read_mp3",
-           "read_aac", "write_wav", "resample", "pcm16_encode"]
+from vocal_remover_tpu_torch.native import pcm16_encode
+
+__all__ = ["load", "read_wav", "read_flac", "read_mp3", "read_aac",
+           "write_wav", "resample", "have_ffmpeg", "pcm16_encode"]
 
 _FFMPEG = shutil.which("ffmpeg")
 
 
-def pcm16_encode(wave: np.ndarray) -> np.ndarray:
-    """float -> int16 PCM: clip to [-1, 1 - 1/32768], scale by 32768,
-    round half to even (the PCM_16 WAV conversion)."""
-    w = np.clip(np.asarray(wave, np.float32), -1.0, 1.0 - 1.0 / 32768.0)
-    return np.round(w * np.float32(32768.0)).astype(np.int16)
+def have_ffmpeg() -> bool:
+    return _FFMPEG is not None
 
 
 def _pcm24_to_float32(raw: bytes, n_channels: int) -> np.ndarray:
@@ -65,21 +67,33 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     return np.ascontiguousarray(data.T), int(sr)
 
 
-def write_wav(path: str, wave: np.ndarray, sr: int):
-    """Write a (C, L) or (L,) float wave as 16-bit PCM."""
+def write_wav(path: str, wave: np.ndarray, sr: int, subtype: str = "PCM_16"):
+    """Write a (C, L) or (L,) float wave: `subtype` "PCM_16" (soundfile's
+    WAV default, what the reference writes) or "FLOAT" (float32)."""
     w = np.asarray(wave, np.float32)
-    data = pcm16_encode(w.T if w.ndim == 2 else w)
-    wavfile.write(path, sr, data[:, 0] if data.ndim == 2 and
-                  data.shape[1] == 1 else data)
+    data = w.T if w.ndim == 2 else w[:, None]  # (L, C)
+    if subtype == "PCM_16":
+        data = pcm16_encode(data)
+    elif subtype != "FLOAT":
+        raise ValueError(f"unsupported subtype {subtype!r}")
+    wavfile.write(path, sr, data[:, 0] if data.shape[1] == 1 else data)
 
 
-def resample(wave: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Resample (..., L) with the reference's `kaiser_fast` sinc filter."""
+def resample(wave: np.ndarray, orig_sr: int, target_sr: int,
+             res_type: str = "kaiser_fast") -> np.ndarray:
+    """Resample (..., L): `kaiser_fast` (the reference's) or `kaiser_best`
+    band-limited sinc interpolation with librosa / resampy's constants,
+    or `polyphase` (scipy's resample_poly, in float64)."""
     if orig_sr == target_sr:
         return wave.astype(np.float32)
+    if res_type == "polyphase":
+        g = math.gcd(orig_sr, target_sr)
+        out = resample_poly(wave.astype(np.float64), target_sr // g,
+                            orig_sr // g, axis=-1)
+        return out.astype(np.float32)
     from vocal_remover_tpu_torch.utils import resample as _sinc
 
-    return _sinc.resample(wave, orig_sr, target_sr, "kaiser_fast")
+    return _sinc.resample(wave, orig_sr, target_sr, res_type)
 
 
 def _read(path: str) -> bytes:
@@ -131,9 +145,11 @@ _READERS = {".wav": read_wav, ".flac": read_flac, ".mp3": read_mp3,
             ".m4a": read_aac, ".mp4": read_aac, ".aac": read_aac}
 
 
-def load(path: str, sr: int | None = 44100) -> tuple[np.ndarray, int]:
-    """librosa.load(mono=False)-style: ((C, L) float32, or (L,) for a
-    one-channel file, sample rate), resampled to `sr` when given. A
+def load(path: str, sr: int | None = 44100, mono: bool = False,
+         dtype=np.float32) -> tuple[np.ndarray, int]:
+    """librosa.load-style: ((C, L), or (L,) for a one-channel file or
+    with `mono` (the channels' mean, taken after the resample), in
+    `dtype`; sample rate), resampled to `sr` when given. A
     compressed stream goes to ffmpeg, as in the JAX package, when its
     native decoder rejects it (ValueError) or the decoders fail to build
     (RuntimeError); without ffmpeg on PATH the error names both."""
@@ -157,6 +173,8 @@ def load(path: str, sr: int | None = 44100) -> tuple[np.ndarray, int]:
     if sr is not None and file_sr != sr:
         wave = resample(wave, file_sr, sr)
         file_sr = sr
-    if wave.shape[0] == 1:
+    if mono and wave.shape[0] > 1:
+        wave = wave.mean(axis=0, keepdims=True)
+    if mono or wave.shape[0] == 1:
         wave = wave[0]  # librosa returns 1-D for mono files
-    return wave.astype(np.float32), file_sr
+    return wave.astype(dtype), file_sr

@@ -1,8 +1,9 @@
-"""Image writing for `--output_image` (reference lib/utils.py `imwrite`).
+"""Image writing for `--output_image` (reference lib/utils.py `imwrite`)
+and reading.
 
-Counterpart of vocal_remover_tpu/utils/image.py `imwrite`: PIL writes
-the file when it imports; without PIL a stdlib PNG encoder writes it,
-with the extension swapped to `.png`.
+Counterpart of vocal_remover_tpu/utils/image.py `imwrite` / `imread`:
+PIL writes the file when it imports; without PIL a stdlib PNG encoder
+writes it, with the extension swapped to `.png`. `imread` needs PIL.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["imwrite"]
+__all__ = ["imwrite", "imread"]
 
 
 def _write_png(path: str, img: np.ndarray):
@@ -51,3 +52,18 @@ def imwrite(path: str, img: np.ndarray) -> bool:
     except Exception as e:
         print(e)
         return False
+
+
+def imread(path: str):
+    """The image as a numpy array, or None (the error printed) when it
+    cannot be read or PIL cannot be imported, as the JAX package's."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("PIL unavailable")
+        return None
+    try:
+        return np.asarray(Image.open(path))
+    except Exception as e:
+        print(e)
+        return None

@@ -1,6 +1,7 @@
 """Host-side spectrogram utilities (numpy).
 
-Counterpart of vocal_remover_tpu/utils/spec.py `merge_artifacts`, the
+Counterpart of vocal_remover_tpu/utils/spec.py: `crop_center` (numpy
+arrays and tensors), `merge_artifacts`, the
 `--postprocess` mask refinement (reference lib/spec_utils.py:60-93),
 `spectrogram_to_image`, the `--output_image` dump (:34-57), and the
 training set's `trim_silence` / `align_wave_head_and_tail` (:96-119).
@@ -12,8 +13,21 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["merge_artifacts", "spectrogram_to_image", "trim_silence",
-           "align_wave_head_and_tail"]
+__all__ = ["crop_center", "merge_artifacts", "spectrogram_to_image",
+           "trim_silence", "align_wave_head_and_tail"]
+
+
+def crop_center(h1, h2):
+    """Centre-crop `h1` along the time axis (-1) to `h2`'s width (numpy
+    arrays or tensors of shape (..., T); reference lib/spec_utils.py:8-23
+    crops dim 3 of NCHW tensors)."""
+    t1, t2 = h1.shape[-1], h2.shape[-1]
+    if t1 == t2:
+        return h1
+    if t1 < t2:
+        raise ValueError("h1 time width must be >= h2 time width")
+    s = (t1 - t2) // 2
+    return h1[..., s:s + t2]
 
 
 def merge_artifacts(y_mask, thres=0.05, min_range=64, fade_size=32):
