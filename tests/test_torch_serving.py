@@ -260,12 +260,3 @@ def test_conv2d_and_batch_norm_follow_the_compute_dtype():
     want = y * scale.bfloat16().reshape(1, -1, 1, 1) + (
         bn[1] - bn[2] * scale).bfloat16().reshape(1, -1, 1, 1)
     assert torch.equal(z, want)
-
-
-def test_load_timer_raises_without_a_card(monkeypatch):
-    """The `load model` stage timer measures on a card only."""
-    from vocal_remover_tpu_torch.scripts import time_model_load
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        time_model_load.main(["--repeat", "1"])

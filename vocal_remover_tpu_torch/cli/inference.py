@@ -23,8 +23,13 @@ serving artifact (cli/export.py; `--cropsize` must be one of its widths,
 the serving transform and the compute dtype are baked in, so
 `--flat_conv` has no effect on it). Input: WAV,
 FLAC, MP3 and AAC (.m4a / .mp4 / .aac) through the port's native
-decoders. `--profile DIR` writes a torch.profiler Chrome trace (CPU and,
-on a card, CUDA activity) of the separation into DIR.
+decoders. Each stage prints its time; `load model` adds its parts, the
+spans (utils/trace.py) `load.read`, `load.serving_transform` and
+`load.to_device`, recorded for that stage alone.
+`--profile DIR` writes a torch.profiler Chrome trace of the separation
+into DIR: the CPU ops of every thread (the directory service and
+streaming run the model on threads of their own), the port's spans as
+ranges among them, and on a card the CUDA activity.
 Unset performance flags resolve per mode as in the JAX CLI: `-i` crop
 256, batch 4, group 1, `highest`; `--input_dir` crop 1024, batch 24,
 group 8, `bfloat16`.
@@ -61,6 +66,8 @@ import time
 
 import numpy as np
 
+from vocal_remover_tpu_torch.utils import trace
+
 MODEL_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "models",
@@ -72,14 +79,20 @@ STREAM_ABOVE_SECONDS = 20 * 60
 
 
 @contextlib.contextmanager
-def _stage(label: str):
-    """Timed progress line per pipeline stage (rank 0 prints)."""
+def _stage(label: str, rec=None):
+    """Timed progress line per pipeline stage (rank 0 prints); with a
+    `trace.recording()` Recorder `rec`, its spans' seconds by name
+    follow."""
     from vocal_remover_tpu_torch.parallel import distributed
 
     t0 = time.perf_counter()
     yield
     if distributed.is_writer():
-        print(f"  {label}: {time.perf_counter() - t0:.2f}s", flush=True)
+        took = time.perf_counter() - t0
+        said = ", ".join(f"{k} {v:.2f}s" for k, v in
+                         (rec.totals() if rec else {}).items())
+        print(f"  {label}: {took:.2f}s" + (f" ({said})" if said else ""),
+              flush=True)
 
 
 def build_parser():
@@ -192,19 +205,16 @@ def _input_files(input_dir: str):
 @contextlib.contextmanager
 def _profiled(trace_dir, device):
     """torch.profiler around the block, its Chrome trace written into
-    `trace_dir`; a no-op for None. The block is one `separation` span.
-    CPU activity is that of the calling thread (directory mode and
-    streaming run the model on worker threads); on a card, CUDA
-    activity covers every thread's kernels."""
+    `trace_dir`; a no-op for None. The block is one `separation` range,
+    recording the port's spans (`trace.recording`): the CPU ops and
+    spans of every thread, and on a card every thread's CUDA activity."""
     if trace_dir is None:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof, record_function("separation"):
+    with trace.profiler(device.type == "cuda") as prof, \
+            trace.recording(), record_function("separation"):
         yield
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, time.strftime("separation-%Y%m%d-%H%M%S")
@@ -252,7 +262,7 @@ def main(argv=None):
 def _main(args, files, device, mesh):
     from vocal_remover_tpu_torch.parallel import distributed
 
-    with _stage('load model'):
+    with trace.recording() as rec, _stage('load model', rec):
         if args.pretrained_model.endswith('.vrtx'):
             # AOT serving artifact: the weights and the serving transform
             # are baked into the exported programs (separate/artifact.py)
@@ -260,18 +270,21 @@ def _main(args, files, device, mesh):
                 load_artifact,
             )
 
-            model = load_artifact(args.pretrained_model, device)
-            if args.cropsize not in model.cropsizes:
-                raise SystemExit(
-                    f"artifact carries cropsizes {model.cropsizes}; "
-                    f"pass --cropsize one of those (got {args.cropsize})")
-            model.program(args.cropsize)  # deserialized in this stage
+            with trace.span('load.read'):
+                model = load_artifact(args.pretrained_model, device)
+                if args.cropsize not in model.cropsizes:
+                    raise SystemExit(
+                        f"artifact carries cropsizes {model.cropsizes}; "
+                        f"pass --cropsize one of those (got "
+                        f"{args.cropsize})")
+                model.program(args.cropsize)  # deserialized in this stage
         else:
             model = _load_checkpoint(args)
-        model = model.to(device).eval()
+        with trace.span('load.to_device'):
+            model = model.to(device).eval()
 
-    trace = args.profile if distributed.is_writer() else None
-    with _profiled(trace, device):
+    trace_dir = args.profile if distributed.is_writer() else None
+    with _profiled(trace_dir, device):
         if files is not None:
             _run_batch(args, model, device, files, mesh)
         else:
@@ -283,8 +296,9 @@ def _load_checkpoint(args):
     `bfloat16`, `int8` and `--flat_conv`, on the CPU."""
     from vocal_remover_tpu_torch.models import convert
 
-    model = convert.load_model(args.pretrained_model, args.n_fft,
-                               args.hop_length, 32, 128)
+    with trace.span('load.read'):
+        model = convert.load_model(args.pretrained_model, args.n_fft,
+                                   args.hop_length, 32, 128)
     if args.precision in ('bfloat16', 'int8') or args.flat_conv:
         # serving transform: eval-BN folding, bf16-resident weights for
         # the bf16 mode, int8 conv weights (dynamic activation scales, as
@@ -292,10 +306,11 @@ def _load_checkpoint(args):
         # 'highest' / 'default' keep float32 weights
         from vocal_remover_tpu_torch.models import serving
 
-        model = serving.serving_variables(
-            model, args.precision
-            if args.precision in ('bfloat16', 'int8') else None,
-            flat=args.flat_conv)
+        with trace.span('load.serving_transform'):
+            model = serving.serving_variables(
+                model, args.precision
+                if args.precision in ('bfloat16', 'int8') else None,
+                flat=args.flat_conv)
     return model
 
 

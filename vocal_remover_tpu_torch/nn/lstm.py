@@ -16,7 +16,9 @@ In training (`train=True`, a BiLSTM module in train mode) the recurrence
 is `lstm_kernel.recurrence_plain` under autograd, as JAX trains with its
 `lax.scan`; the op, and so the kernel, has no gradient (the JAX
 package's Pallas recurrence has no backward either). Eval, validation
-included, runs the op: the kernel on the card.
+included, runs the op: the kernel on the card. The training loop is
+traced (utils/trace.py) as `lstm.recurrence_plain` and its backward as
+`lstm.recurrence_backward`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from vocal_remover_tpu_torch.nn import config, lstm_kernel
+from vocal_remover_tpu_torch.utils import trace
 
 
 def bilstm(params, x, train: bool = False):
@@ -43,8 +46,10 @@ def bilstm(params, x, train: bool = False):
             + pb["b_ih"] + pb["b_hh"])
     xg = torch.cat([xg_f, xg_b], dim=1)  # (T, 2N, 4H), contiguous
     if train:
-        hs = lstm_kernel.recurrence_plain(
-            xg, torch.stack([pf["w_hh"], pb["w_hh"]]))
+        with trace.span("lstm.recurrence_plain"):
+            hs = lstm_kernel.recurrence_plain(
+                xg, torch.stack([pf["w_hh"], pb["w_hh"]]))
+        trace.backward_span("lstm.recurrence_backward", hs, xg)
     else:
         # (2, 4H, H): the kernel's layout, torch's weight_hh_l0 stacked
         w_cols = torch.stack([pf["w_hh"].t(), pb["w_hh"].t()])

@@ -55,6 +55,7 @@ from vocal_remover_tpu_torch.ops.windowing import (
     num_patches,
     stitch_masks,
 )
+from vocal_remover_tpu_torch.utils import trace
 from vocal_remover_tpu_torch.utils.spec import merge_artifacts
 
 
@@ -130,13 +131,16 @@ class Separator:
         k = -(-n_all // (bs * ranks)) * bs  # this rank's patches
         if mesh is not None:
             x = x[mesh.get_rank() * k:][:k]
+        trace.count("separate.patches_run", k)
+        trace.count("separate.patches_topup", k - x.shape[0])
         out = []
         for i in range(0, k, bs):
             xb = x[i:i + bs]
             if xb.shape[0] < bs:  # topped up with zero patches
                 xb = torch.cat([xb, xb.new_zeros(bs - xb.shape[0],
                                                  *x.shape[1:])])
-            out.append(self.model(xb))
+            with trace.span("separate.model_chunk"):
+                out.append(self.model(xb))
         out = torch.cat(out)
         if mesh is not None:
             parts = [torch.empty_like(out) for _ in range(ranks)]
@@ -148,17 +152,19 @@ class Separator:
         """Padded (S, 2, F, T) spectrograms and (S,) scales -> stitched
         masks (S, C, F, P * roi), the patches of all songs merged into one
         stream of whole chunks (over the mesh's ranks when `sharded`)."""
-        scale = inv_scale.view(-1, 1, 1, 1)
-        if self.model.is_complex:
-            feats = torch.cat([re_pad, im_pad], dim=1) * scale
-        else:
-            feats = torch.sqrt(re_pad * re_pad + im_pad * im_pad) * scale
-        x = extract_patches(feats, self.cropsize, roi, self.offset)
-        n_p, n_s = x.shape[:2]  # (P, S, C, F, crop)
-        x = x.transpose(0, 1).reshape(n_s * n_p, *x.shape[2:])
+        with trace.span("separate.patches"):
+            scale = inv_scale.view(-1, 1, 1, 1)
+            if self.model.is_complex:
+                feats = torch.cat([re_pad, im_pad], dim=1) * scale
+            else:
+                feats = torch.sqrt(re_pad * re_pad + im_pad * im_pad) * scale
+            x = extract_patches(feats, self.cropsize, roi, self.offset)
+            n_p, n_s = x.shape[:2]  # (P, S, C, F, crop)
+            x = x.transpose(0, 1).reshape(n_s * n_p, *x.shape[2:])
         out = self._forward(x, sharded)
-        out = out.reshape(n_s, n_p, *out.shape[1:]).transpose(0, 1)
-        return stitch_masks(out, self.offset)
+        with trace.span("separate.stitch"):
+            out = out.reshape(n_s, n_p, *out.shape[1:]).transpose(0, 1)
+            return stitch_masks(out, self.offset)
 
     @torch.inference_mode()
     def _run(self, waves, tta: bool, only_instruments: bool = False):
@@ -172,7 +178,8 @@ class Separator:
         pad_l, pad_r, roi = make_padding(n_frame, self.cropsize, self.offset)
         shift = roi // 2
 
-        re, im = stft(waves, n_fft, hop)  # (S, 2, F, T)
+        with trace.span("separate.stft"):
+            re, im = stft(waves, n_fft, hop)  # (S, 2, F, T)
 
         def padded(extra):
             cfg = (pad_l + extra, pad_r + extra)
@@ -180,33 +187,42 @@ class Separator:
             return pad(re, cfg), pad(im, cfg)
 
         if tta:
-            re1, im1 = padded(0)
-            m1 = self._masks(re1, im1, 1.0 / _lexmax_abs(re1, im1), roi)
-            re2, im2 = padded(shift)
-            m2 = self._masks(re2, im2, 1.0 / _lexmax_abs(re2, im2), roi)
-            mask = (m1[..., :n_frame] + m2[..., shift:shift + n_frame]) * 0.5
+            with trace.span("separate.patches"):
+                re1, im1 = padded(0)
+                inv1 = 1.0 / _lexmax_abs(re1, im1)
+            m1 = self._masks(re1, im1, inv1, roi)
+            with trace.span("separate.patches"):
+                re2, im2 = padded(shift)
+                inv2 = 1.0 / _lexmax_abs(re2, im2)
+            m2 = self._masks(re2, im2, inv2, roi)
+            with trace.span("separate.stitch"):
+                mask = (m1[..., :n_frame]
+                        + m2[..., shift:shift + n_frame]) * 0.5
         else:
-            inv = 1.0 / torch.sqrt(re * re + im * im).amax(dim=(1, 2, 3))
-            re1, im1 = padded(0)
+            with trace.span("separate.patches"):
+                inv = 1.0 / torch.sqrt(re * re + im * im).amax(dim=(1, 2, 3))
+                re1, im1 = padded(0)
             mask = self._masks(re1, im1, inv, roi)[..., :n_frame]
 
-        if model.is_complex:  # y = m (*) X, v = X - y
-            mr, mi = mask[:, :2], mask[:, 2:]
-            y_re, y_im = mr * re - mi * im, mr * im + mi * re
-            v_re, v_im = re - y_re, im - y_im
-        else:
-            y_re, y_im = mask * re, mask * im
-            v_re, v_im = (1 - mask) * re, (1 - mask) * im
-        y = istft(y_re, y_im, n_fft, hop, n_samples)
-        if only_instruments:
-            return y, None
-        return y, istft(v_re, v_im, n_fft, hop, n_samples)
+        with trace.span("separate.istft"):
+            if model.is_complex:  # y = m (*) X, v = X - y
+                mr, mi = mask[:, :2], mask[:, 2:]
+                y_re, y_im = mr * re - mi * im, mr * im + mi * re
+                v_re, v_im = re - y_re, im - y_im
+            else:
+                y_re, y_im = mask * re, mask * im
+                v_re, v_im = (1 - mask) * re, (1 - mask) * im
+            y = istft(y_re, y_im, n_fft, hop, n_samples)
+            if only_instruments:
+                return y, None
+            return y, istft(v_re, v_im, n_fft, hop, n_samples)
 
     def _separate(self, x, tta: bool, pcm16_io: bool,
                   only_instruments: bool = False):
         """(S, 2, n) tensor on the device, int16 with `pcm16_io` -> the
         stems as tensors on the device, int16 with `pcm16_io`, else
-        float32. The caller holds the precision mode."""
+        float32. The caller holds the precision mode and the `separate`
+        span."""
         x = x.float() / 32768.0 if pcm16_io else x.float()
         y, v = self._run(x, tta, only_instruments)
         if pcm16_io:
@@ -229,10 +245,15 @@ class Separator:
         waves = np.asarray(waves)
         if waves.ndim != 3:
             raise ValueError("separate_waves expects a (S, 2, n) stack")
-        x = torch.from_numpy(host_wave(waves, pcm16_io)).to(self.device)
-        with config.precision(self.precision):
-            y, v = self._separate(x, tta, pcm16_io, only_instruments)
-        return y.cpu().numpy(), (None if v is None else v.cpu().numpy())
+        with trace.span("separate"):
+            with trace.span("separate.upload"):
+                x = torch.from_numpy(host_wave(waves, pcm16_io)).to(
+                    self.device)
+            with config.precision(self.precision):
+                y, v = self._separate(x, tta, pcm16_io, only_instruments)
+            with trace.span("separate.download"):
+                return y.cpu().numpy(), (None if v is None
+                                         else v.cpu().numpy())
 
     def separate_wave(self, wave: np.ndarray, tta: bool = False,
                       pcm16_io: bool = False, bucket: int | None = None,
@@ -277,11 +298,14 @@ class Separator:
             return torch.from_numpy(
                 np.ascontiguousarray(a, np.float32)[None]).to(self.device)
 
-        scale = torch.tensor([inv_scale], dtype=torch.float32,
-                             device=self.device)
+        with trace.span("separate.upload"):
+            re, im = upload(X_pad.real), upload(X_pad.imag)
+            scale = torch.tensor([inv_scale], dtype=torch.float32,
+                                 device=self.device)
         with config.precision(self.precision):
-            mask = self._masks(upload(X_pad.real), upload(X_pad.imag),
-                               scale, roi, sharded=False)[0].cpu().numpy()
+            mask = self._masks(re, im, scale, roi, sharded=False)[0]
+        with trace.span("separate.download"):
+            mask = mask.cpu().numpy()
         if self.model.is_complex:
             mask = mask[:2] + 1j * mask[2:]
         return mask
@@ -289,25 +313,28 @@ class Separator:
     def separate(self, X_spec: np.ndarray):
         """(2, F, T) complex spectrogram -> (y_spec, v_spec)."""
         n_frame = X_spec.shape[2]
-        X_pad, roi = self._pad_spec(X_spec)
-        inv_scale = np.float32(1.0 / np.abs(X_spec).max())
-        mask = self._spec_mask(X_pad, roi, inv_scale)[:, :, :n_frame]
-        return self._postprocess(X_spec, mask)
+        with trace.span("separate"):
+            X_pad, roi = self._pad_spec(X_spec)
+            inv_scale = np.float32(1.0 / np.abs(X_spec).max())
+            mask = self._spec_mask(X_pad, roi, inv_scale)[:, :, :n_frame]
+            return self._postprocess(X_spec, mask)
 
     def separate_tta(self, X_spec: np.ndarray):
         """TTA: a second pass shifted by roi // 2 frames, the two masks
         averaged; each pass scaled by its own padded spectrogram's
         |lexicographic max|."""
         n_frame = X_spec.shape[2]
-        X_pad, roi = self._pad_spec(X_spec)
-        inv_scale = np.float32(1.0 / np.abs(X_pad.max()))
-        mask = self._spec_mask(X_pad, roi, inv_scale)[:, :, :n_frame]
+        with trace.span("separate"):
+            X_pad, roi = self._pad_spec(X_spec)
+            inv_scale = np.float32(1.0 / np.abs(X_pad.max()))
+            mask = self._spec_mask(X_pad, roi, inv_scale)[:, :, :n_frame]
 
-        X_pad2, _ = self._pad_spec(X_spec, extra_shift=roi // 2)
-        inv_scale2 = np.float32(1.0 / np.abs(X_pad2.max()))
-        mask_tta = self._spec_mask(X_pad2, roi, inv_scale2)[:, :, roi // 2:]
-        mask = (mask + mask_tta[:, :, :n_frame]) * 0.5
-        return self._postprocess(X_spec, mask)
+            X_pad2, _ = self._pad_spec(X_spec, extra_shift=roi // 2)
+            inv_scale2 = np.float32(1.0 / np.abs(X_pad2.max()))
+            mask_tta = self._spec_mask(X_pad2, roi,
+                                       inv_scale2)[:, :, roi // 2:]
+            mask = (mask + mask_tta[:, :, :n_frame]) * 0.5
+            return self._postprocess(X_spec, mask)
 
     def _postprocess(self, X_spec, mask):
         if self.postprocess:

@@ -10,6 +10,11 @@ Three stages overlap, each on its own thread:
                 an event marks the end of that copy;
     caller:     waits on that event, then reads the stems (`map`).
 
+Spans (utils/trace.py): `service.upload` on the uploader;
+`service.wait_upload`, `service.dispatch` (with the Separator's
+`separate` inside) and `service.wait_room` on the dispatcher;
+`service.wait_song` and `service.residual` in the caller.
+
 Pinned buffers come from PyTorch's caching host allocator, which is a
 ring of pinned blocks: a block is handed out again only after the copy
 recorded on it has finished. Songs are written into them once (no
@@ -27,6 +32,7 @@ import torch
 
 from vocal_remover_tpu_torch.separate import pipeline
 from vocal_remover_tpu_torch.separate.separator import host_wave
+from vocal_remover_tpu_torch.utils import trace
 
 
 def _to_host(t, pin: bool):
@@ -73,14 +79,13 @@ class SeparatorService:
         self.max_pending = max_pending or max(8, 4 * self.group)
 
     def _batches(self, waves):
-        """(input indices, prepared songs) in dispatch order: a group as
-        soon as `group` songs of one length are held; past `max_pending`
-        held songs, the buffer of the oldest one, song by song; at the
-        end the leftovers, song by song, oldest buffer first."""
+        """(input indices, songs) in dispatch order: a group as soon as
+        `group` songs of one length are held; past `max_pending` held
+        songs, the buffer of the oldest one, song by song; at the end the
+        leftovers, song by song, oldest buffer first."""
         buffers: dict = {}  # length -> [(idx, song), ...]
         pending = 0
         for idx, w in enumerate(waves):
-            w = host_wave(w, self.pcm16_io)
             buf = buffers.setdefault(w.shape[-1], [])
             buf.append((idx, w))
             pending += 1
@@ -116,21 +121,23 @@ class SeparatorService:
         def uploader():
             try:
                 for idxs, songs in self._batches(waves):
-                    host = torch.empty((len(songs), *songs[0].shape),
-                                       dtype=dtype, pin_memory=cuda)
-                    stack = host.numpy()
-                    for k, s in enumerate(songs):
-                        stack[k] = s
-                    ev = None
-                    if cuda:
-                        with torch.cuda.stream(upload):
-                            x = host.to(dev, non_blocking=True)
-                            ev = torch.cuda.Event()
-                            ev.record(upload)
-                    else:
-                        x = host
-                    if not pipeline.put(q_up, (x, ev, songs, idxs), stop):
-                        return
+                    with trace.span("service.upload"):
+                        songs = [host_wave(s, pcm16) for s in songs]
+                        host = torch.empty((len(songs), *songs[0].shape),
+                                           dtype=dtype, pin_memory=cuda)
+                        stack = host.numpy()
+                        for k, s in enumerate(songs):
+                            stack[k] = s
+                        ev = None
+                        if cuda:
+                            with torch.cuda.stream(upload):
+                                x = host.to(dev, non_blocking=True)
+                                ev = torch.cuda.Event()
+                                ev.record(upload)
+                        else:
+                            x = host
+                        if not pipeline.put(q_up, (x, ev, songs, idxs), stop):
+                            return
             except BaseException as e:  # re-raised in the caller by `map`
                 pipeline.put(q_up, e, stop)
                 return
@@ -140,27 +147,32 @@ class SeparatorService:
             try:
                 with pipeline.model_thread(sep.precision, compute):
                     while True:
-                        item = pipeline.get(q_up, stop)
+                        with trace.span("service.wait_upload"):
+                            item = pipeline.get(q_up, stop)
                         if item is None or isinstance(item, BaseException):
                             pipeline.put(q_out, item, stop)
                             return
                         x, ev, songs, idxs = item
-                        if ev is not None:
-                            compute.wait_event(ev)
-                            # x was allocated on the upload stream: keep
-                            # its memory from reuse until compute is done
-                            x.record_stream(compute)
-                        y, v = sep._separate(x, tta, pcm16, resid)
-                        y = _to_host(y, cuda)
-                        v = None if v is None else _to_host(v, cuda)
-                        done = None
-                        if cuda:
-                            done = torch.cuda.Event()
-                            done.record(compute)
-                        del x
-                        if not pipeline.put(q_out, (done, y, v, songs, idxs),
-                                            stop):
-                            return
+                        with trace.span("service.dispatch"), \
+                                trace.span("separate"):
+                            if ev is not None:
+                                compute.wait_event(ev)
+                                # x was allocated on the upload stream:
+                                # keep its memory from reuse until
+                                # compute is done
+                                x.record_stream(compute)
+                            y, v = sep._separate(x, tta, pcm16, resid)
+                            y = _to_host(y, cuda)
+                            v = None if v is None else _to_host(v, cuda)
+                            done = None
+                            if cuda:
+                                done = torch.cuda.Event()
+                                done.record(compute)
+                            del x
+                        with trace.span("service.wait_room"):
+                            if not pipeline.put(
+                                    q_out, (done, y, v, songs, idxs), stop):
+                                return
             except BaseException as e:  # re-raised in the caller by `map`
                 pipeline.put(q_out, e, stop)
 
@@ -177,24 +189,27 @@ class SeparatorService:
                     next_idx += 1
                 if finished:
                     return
-                item = q_out.get()
+                with trace.span("service.wait_song"):
+                    item = q_out.get()
+                    if isinstance(item, tuple) and item[0] is not None:
+                        item[0].synchronize()  # the stems' copy is done
                 if item is None:
                     finished = True
                     continue
                 if isinstance(item, BaseException):
                     raise item
-                done, y, v, songs, idxs = item
-                if done is not None:
-                    done.synchronize()
-                y = y.numpy()
-                v = None if v is None else v.numpy()
-                for k, idx in enumerate(idxs):
-                    if resid:
-                        vv = songs[k].astype(np.int32) - y[k].astype(np.int32)
-                        done_songs[idx] = (
-                            y[k], np.clip(vv, -32768, 32767).astype(np.int16))
-                    else:
-                        done_songs[idx] = (y[k], v[k])
+                _, y, v, songs, idxs = item
+                with trace.span("service.residual"):
+                    y = y.numpy()
+                    v = None if v is None else v.numpy()
+                    for k, idx in enumerate(idxs):
+                        if resid:
+                            vv = (songs[k].astype(np.int32)
+                                  - y[k].astype(np.int32))
+                            done_songs[idx] = (y[k], np.clip(
+                                vv, -32768, 32767).astype(np.int16))
+                        else:
+                            done_songs[idx] = (y[k], v[k])
         finally:
             # the dispatcher restores the process-wide precision mode as it
             # exits: let it do so before the caller runs anything else

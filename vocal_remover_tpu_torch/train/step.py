@@ -69,6 +69,7 @@ from vocal_remover_tpu_torch.parallel import mesh as mesh_lib
 from vocal_remover_tpu_torch.parallel import policy
 from vocal_remover_tpu_torch.train import losses
 from vocal_remover_tpu_torch.train.prefetch import device_prefetch
+from vocal_remover_tpu_torch.utils import trace
 
 
 def quantize_u8(a):
@@ -258,16 +259,18 @@ class Trainer:
         event): this rank's rows (all of a shared batch), copied on the
         upload stream; `event` marks the copies' end (None on the
         CPU)."""
-        X, y = batch
-        rows, shared = self._local_count(len(X)), self._shared(len(X))
-        if self._upload is None:
-            return (self._put(X, whole_ok), self._put(y, whole_ok), rows,
-                    shared, None)
-        with torch.cuda.device(self.device), torch.cuda.stream(self._upload):
-            Xd, yd = self._put(X, whole_ok), self._put(y, whole_ok)
-            ev = torch.cuda.Event()
-            ev.record()
-        return Xd, yd, rows, shared, ev
+        with trace.span("train.stage"):
+            X, y = batch
+            rows, shared = self._local_count(len(X)), self._shared(len(X))
+            if self._upload is None:
+                return (self._put(X, whole_ok), self._put(y, whole_ok), rows,
+                        shared, None)
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._upload):
+                Xd, yd = self._put(X, whole_ok), self._put(y, whole_ok)
+                ev = torch.cuda.Event()
+                ev.record()
+            return Xd, yd, rows, shared, ev
 
     def _staged(self, loader, whole_ok=False):
         """Iterate (X_dev, y_dev, rows, shared), staged `prefetch` batches
@@ -319,12 +322,13 @@ class Trainer:
 
     def _waited(self, it):
         while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            self.loader_wait_s += time.perf_counter() - t0
+            with trace.span("train.wait_batch"):
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                self.loader_wait_s += time.perf_counter() - t0
             yield item
 
     # ------------------------------------------------------------------
@@ -387,19 +391,18 @@ class Trainer:
         self.loader_wait_s = 0.0
         sum_loss, n_samples, itr = None, 0, -1
         for itr, (Xd, yd, blen, _) in enumerate(batches):
-            generator = self._generator()
-            self._step_counter += 1
-            loss = self._loss(Xd, yd, generator)
-            if A == 1:
-                loss.backward()
-                self._apply()
-            else:
-                (loss * (1.0 / A)).backward()
-                if (itr + 1) % A == 0:
+            with trace.span("train.step"):
+                generator = self._generator()
+                self._step_counter += 1
+                with trace.span("train.forward"):
+                    loss = self._loss(Xd, yd, generator)
+                with trace.span("train.backward"):
+                    (loss if A == 1 else loss * (1.0 / A)).backward()
+                if A == 1 or (itr + 1) % A == 0:
                     self._apply()
-            loss = loss.detach() * blen
-            sum_loss = loss if sum_loss is None else sum_loss + loss
-            n_samples += blen
+                loss = loss.detach() * blen
+                sum_loss = loss if sum_loss is None else sum_loss + loss
+                n_samples += blen
         if A > 1 and itr >= 0 and (itr + 1) % A != 0:
             self._apply()
         total, n = self._data_sum(
@@ -407,14 +410,15 @@ class Trainer:
         return 0.0 if n == 0 else total / n
 
     def _apply(self):
-        if self.mesh is not None:
-            grads = [p.grad for p in self.model.parameters()
-                     if p.grad is not None]
-            with torch.no_grad():
-                for g, m in zip(grads, self._data_mean(grads)):
-                    g.copy_(m)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        with trace.span("train.optimizer"):
+            if self.mesh is not None:
+                grads = [p.grad for p in self.model.parameters()
+                         if p.grad is not None]
+                with torch.no_grad():
+                    for g, m in zip(grads, self._data_mean(grads)):
+                        g.copy_(m)
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
 
     def _predict(self, X, y):
         """(the offset-trimmed eval prediction, the target it is scored
